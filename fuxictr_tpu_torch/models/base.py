@@ -7,6 +7,13 @@ batch moves to the device, the logits go through a sigmoid (binary
 classification), and the rows that pad the last batch are dropped by the
 sample mask before any metric sees them. Training, and tasks other than
 binary classification, are not ported yet.
+
+``compute_dtype`` follows the JAX package's ``_predict_body``: the
+parameters stay float32 (the state ``load_state_dict`` fills), the forward
+runs on a copy of every floating parameter cast to the compute type, and
+the logits are cast to float32 before the sigmoid. Batch tensors keep their
+types, so a float32 mask promotes what it touches, as in jnp. There is no
+autocast: each op computes in the type its inputs give it.
 """
 
 import logging
@@ -19,6 +26,23 @@ from fuxictr_tpu_torch import resolve_device
 from fuxictr_tpu_torch.data import SAMPLE_MASK_KEY
 from fuxictr_tpu_torch.metrics import evaluate_metrics
 
+# compute_dtype values, as the JAX package reads them (models/base.py there);
+# float16 and float64 are refused: the port's kernels take float32 and
+# bfloat16 only
+_FLOAT32_NAMES = (None, "float32", "fp32")
+_BFLOAT16_NAMES = ("bfloat16", "bf16")
+
+
+def resolve_compute_dtype(value):
+    """``None`` for float32 compute, else ``torch.bfloat16``. Raises on any
+    value the port cannot honour."""
+    if value in _FLOAT32_NAMES or value is torch.float32:
+        return None
+    if value in _BFLOAT16_NAMES or value is torch.bfloat16:
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype={value!r} is not supported: use "
+                     f"float32 / fp32 / None, or bfloat16 / bf16")
+
 
 class RankModel(nn.Module):
     """Subclasses build their layers in ``__init__`` (on the CPU, from
@@ -27,7 +51,7 @@ class RankModel(nn.Module):
 
     def __init__(self, feature_map, model_id="RankModel",
                  task="binary_classification", device=None, seed=2019,
-                 **kwargs):
+                 compute_dtype=None, **kwargs):
         super().__init__()
         if task != "binary_classification":
             raise NotImplementedError(f"task={task} is not ported yet")
@@ -36,6 +60,8 @@ class RankModel(nn.Module):
         self.device = resolve_device(device)
         self.generator = torch.Generator().manual_seed(int(seed))
         self.validation_metrics = kwargs.get("metrics", ["AUC"])
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self._cast_params, self._cast_key = None, None
 
     def _finish_build(self):
         self.to(self.device)
@@ -56,8 +82,32 @@ class RankModel(nn.Module):
                                            device=self.device)
         return out
 
+    def _compute_params(self):
+        """Every floating parameter cast to the compute type. The copy is
+        made once and again only after a parameter was replaced or changed
+        in place (``load_state_dict``, ``to``), which its version counter
+        and address show."""
+        key = tuple((p.device, p.data_ptr(), p._version)
+                    for p in self.parameters())
+        if key != self._cast_key:
+            self._cast_params = {
+                name: (p.detach().to(self.compute_dtype)
+                       if p.is_floating_point() else p.detach())
+                for name, p in self.named_parameters()}
+            self._cast_key = key
+        return self._cast_params
+
+    def compute_forward(self, batch):
+        """The forward of a batch already on the device, in the compute
+        type: ``self(batch)`` in float32, else the same forward on the cast
+        parameters (buffers such as BatchNorm statistics stay float32)."""
+        if self.compute_dtype is None:
+            return self(batch)
+        return torch.func.functional_call(self, self._compute_params(),
+                                          (batch,))
+
     def _predict_batch(self, batch):
-        y = self(self._place_batch(batch))["y_pred"].float()
+        y = self.compute_forward(self._place_batch(batch))["y_pred"].float()
         return torch.sigmoid(y).cpu().numpy()
 
     @torch.no_grad()

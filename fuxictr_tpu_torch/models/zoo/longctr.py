@@ -7,13 +7,12 @@ then target) and ``"__seq_mask__"`` ``[B, L]``.
 """
 
 import torch
-from torch import nn
 
 from fuxictr_tpu_torch.data.longctr_loader import ITEMS_KEY, SEQ_MASK_KEY
 from fuxictr_tpu_torch.models.base import RankModel
 from fuxictr_tpu_torch.models.registry import register_model
 from fuxictr_tpu_torch.ops.attention import MultiHeadTargetAttention
-from fuxictr_tpu_torch.ops.common import xavier_normal_
+from fuxictr_tpu_torch.ops.common import Dense, einsum, xavier_normal_
 from fuxictr_tpu_torch.ops.embedding import FeatureEmbedding
 from fuxictr_tpu_torch.ops.mlp import MLP_Block
 
@@ -43,9 +42,10 @@ class _LongCTRBase(RankModel):
 
 def topk_gather(seq_emb, mask, scores, k):
     """Embeddings and mask of the ``k`` highest-scoring positions:
-    ``([B, k, D], [B, k])``. Which of several tied positions is taken may
-    differ from ``jax.lax.top_k``; SIM's output does not depend on it."""
-    top_idx = torch.topk(scores, min(k, scores.shape[1]), dim=1).indices
+    ``([B, k, D], [B, k])``. Of tied scores the lower position comes first,
+    as in ``jax.lax.top_k``: in bfloat16, distinct items can tie."""
+    top_idx = torch.sort(scores, dim=1, descending=True,
+                         stable=True).indices[:, :k]
     emb = torch.gather(seq_emb, 1,
                        top_idx[..., None].expand(-1, -1, seq_emb.shape[-1]))
     return emb, torch.gather(mask, 1, top_idx)
@@ -77,8 +77,8 @@ class SIM(_LongCTRBase):
         attn = dict(input_dim=self.item_dim, attention_dim=attention_dim,
                     num_heads=num_heads, generator=g)
         self.short_attention = MultiHeadTargetAttention(**attn)
-        self.W_a = nn.Linear(self.item_dim, attention_dim, bias=False)
-        self.W_b = nn.Linear(self.item_dim, attention_dim, bias=False)
+        self.W_a = Dense(self.item_dim, attention_dim, bias=False)
+        self.W_b = Dense(self.item_dim, attention_dim, bias=False)
         xavier_normal_(self.W_a.weight.data, g)
         xavier_normal_(self.W_b.weight.data, g)
         mlp = dict(hidden_units=tuple(dnn_hidden_units),
@@ -102,8 +102,10 @@ class SIM(_LongCTRBase):
         long_seq = item_emb[:, :-1, :]
         q = self.W_a(target_emb)
         kk = self.W_b(long_seq)
-        qk = torch.einsum("bd,bld->bl", q, kk) * mask
-        pooled = torch.einsum("bl,bld->bd", qk, long_seq)
+        # in bfloat16 the float32 mask promotes qk, pooled and the aux input
+        # to float32, as jnp does; the ESU path stays bfloat16
+        qk = einsum("bd,bld->bl", q, kk) * mask
+        pooled = einsum("bl,bld->bd", qk, long_seq)
         y_aux = self.dnn_aux(torch.cat(emb_list + [target_emb, pooled],
                                        dim=-1))
         # top-k selects on qk after the mask multiply: padded slots score 0

@@ -3,12 +3,14 @@
 ``MultiHeadTargetAttention`` projects one target per row and its history,
 splits heads, and runs single-query attention over ``[B*H, L, Dh]`` through
 ``ops/target_attention.py`` (the CUDA kernel on the GPU). The projections
-are plain ``nn.Linear`` products, named as the flax ones are.
+are ``Dense`` products (``ops/common.py``), named as the flax ones are.
+In bfloat16 the layer takes bfloat16 q, k, v and keeps the mask float32,
+as the JAX layer does.
 """
 
 from torch import nn
 
-from fuxictr_tpu_torch.ops.common import xavier_normal_
+from fuxictr_tpu_torch.ops.common import Dense, xavier_normal_
 from fuxictr_tpu_torch.ops.target_attention import target_attention
 
 
@@ -23,7 +25,7 @@ def _merge_heads(x):
 
 
 def _linear(in_dim, out_dim, generator):
-    lin = nn.Linear(in_dim, out_dim, bias=False)
+    lin = Dense(in_dim, out_dim, bias=False)
     xavier_normal_(lin.weight.data, generator)
     return lin
 

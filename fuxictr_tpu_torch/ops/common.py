@@ -1,11 +1,15 @@
-"""The initializer and the activations of the ported layers. Activations
-named in configs resolve through an explicit table (never ``eval``); the
-initializer draws from the ``torch.Generator`` it is given."""
+"""The initializer, the activations and the mixed-type rules of the ported
+layers. Activations named in configs resolve through an explicit table
+(never ``eval``); the initializer draws from the ``torch.Generator`` it is
+given. ``Dense`` and ``einsum`` promote mixed input types as ``flax.linen.
+Dense`` and ``jnp.einsum`` do, where torch's ``F.linear`` and ``einsum``
+refuse them: a bfloat16 model meets float32 masks (``models/base.py``)."""
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 # jax.nn.initializers' truncated normal is cut at two standard deviations
 # and rescaled by this factor so that its variance is the one asked for
@@ -47,3 +51,24 @@ def get_activation(name):
     if key not in _ACTIVATIONS:
         raise ValueError(f"activation={name} is not supported.")
     return _ACTIVATIONS[key]
+
+
+def einsum(equation, *operands):
+    """``torch.einsum`` on operands promoted to their common type, as
+    ``jnp.einsum`` promotes them (bfloat16 with float32 gives float32)."""
+    dtype = operands[0].dtype
+    for op in operands[1:]:
+        dtype = torch.promote_types(dtype, op.dtype)
+    return torch.einsum(equation, *(op.to(dtype) for op in operands))
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in the common type of its input and its
+    parameters, as ``flax.linen.Dense`` (``dtype=None``) does: a float32
+    input to bfloat16 parameters gives a float32 product. The bias is added
+    after the product, as there, so that bfloat16 rounds twice."""
+
+    def forward(self, x):
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        return y if self.bias is None else y + self.bias.to(dtype)

@@ -1,4 +1,4 @@
-// Single-query target attention, forward, f32, for sm_90a.
+// Single-query target attention, forward, f32 and bf16, for sm_90a.
 //
 // Replaces the Pallas TPU kernel fuxictr_tpu/ops/pallas_kernels.py:
 // flash_target_attention (body _flash_kernel). For each row n of N:
@@ -8,125 +8,498 @@
 //
 // which is what _xla_target_attention computes and what SIM's two
 // MultiHeadTargetAttention calls compute per forward (N = B*H rows, L = 99
-// and 100, D = 64 at the repo's full SIM width).
+// and 100, D = 64 at the repo's full SIM width). q, k, v and out are f32
+// or bf16 (one type for all four); the mask is f32; every sum, the scores
+// and the softmax are f32 whatever the input type, as in the Pallas body.
 //
-// Bound: memory. Each row reads L*D floats of k and of v and does 4*L*D
-// flops on them, one flop per byte, far below the H100's
-// flops-per-byte ridge. The design therefore reads k and v exactly once,
-// in order, and keeps the [N, L] scores out of device memory: one thread
-// block per row streams L in tiles of TILE_L positions; warps compute the
-// tile's scores with coalesced loads of k rows and shuffle reductions into
-// shared memory; an f32 online softmax (running max, denominator) rescales
-// a per-thread slice of the numerator acc[D] while threads read v rows
-// coalesced along D.
+// Bound: bytes. A row's k and v are its own (L*D each, 12.8 KB in bf16 and
+// 25.6 KB in f32 at SIM's shapes), read once and used for 4*L*D flops: one
+// flop per byte in f32, two in bf16, far below the card's ridge. No tensor
+// cores: each row is a product with M = 1 against a B that no other row
+// shares, and wgmma needs 64 rows sharing one B tile.
+//
+// Design, for keeping enough bytes in flight (about 25 KB per SM at
+// 3.35 TB/s and a microsecond of latency):
+// - persistent blocks, as many as fit on the card (occupancy x SMs), each
+//   walking rows blockIdx.x, +gridDim.x, ... in tiles of up to T positions
+//   (a whole SIM row is one tile: 51.2 KB of k and v in f32);
+// - a ring of kStages shared-memory stages. One thread fetches a tile's q, k
+//   and v with 1-D TMA bulk copies (cp.async.bulk) completed on the stage's
+//   two mbarriers (q and k on one, v on the other, so that the scores start
+//   while v lands); each thread fetches its own positions of the mask with
+//   4-byte cp.async. The next kStages-1 tiles are in flight while one is
+//   reduced;
+// - no serial loop over a tile: `split` threads per position take q.k with
+//   16-byte shared-memory reads (chunks rotated by position so that a warp
+//   hits distinct banks) and a shuffle; every warp takes the tile's max and
+//   sum with shuffles; thread groups read v rows along D in 16-byte chunks,
+//   and the groups are summed once per row with shuffles and one shared
+//   pass;
+// - the online rescale (running max, denominator) only matters across the
+//   tiles of a long row (L = 2048); a row of one tile is one pass.
+// Bulk copies need 16-byte aligned addresses and sizes. Where D*itemsize is
+// not a multiple of 16 (D % 4 != 0 in f32, D % 8 != 0 in bf16) or a base
+// pointer is not 16-byte aligned, the kernel's kBulk=false form loads the
+// tile with plain loads instead, padding each row of the stage to Dp
+// columns with zeros so that the same 16-byte reads apply.
 //
 // L is never padded. The running max starts at -inf, so a row whose mask
 // is all zero gets weights exp(-1e9 - (-1e9)) = 1 at every real position
 // and returns the mean of v over L, as the XLA path and the model do (the
 // Pallas kernel, padding L to its tile, divides by the padded length).
-//
-// wgmma, TMA and bf16 inputs are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
+// Two stages of up to 56 KB of k and v: a whole SIM row per stage, two
+// blocks per SM in f32 and four in bf16. (A sweep of 2 x 56 KB to 8 x 13 KB
+// on the H100 found no faster ring at SIM's shapes; smaller tiles pay the
+// per-tile barriers and rescale more often.)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileL = 64;
-constexpr int kMaxD = kThreads;
+constexpr int kStages = 2;
+constexpr int kStageBytes = 56 * 1024;   // k and v of one tile
+constexpr int kMaxPasses = 4;            // score passes over a tile
+constexpr int kMaxTile = kThreads * kMaxPasses;
 constexpr float kMasked = -1.0e9f;
 
-__global__ void __launch_bounds__(kThreads)
-target_attention_fwd_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
+// Offsets into the dynamic shared memory, the same on host and device:
+// mbarriers, then the stages (q, k tile, v tile; each row Dp wide), the
+// stages' mask tiles, the tile's scores and the per-row reduction rows.
+// `split` threads share each position's q.k: the largest power of two
+// that divides the row's 16-byte chunks and leaves a thread per share.
+struct Layout {
+    int tile, dp, chunks, split, red_rows;
+    int stage_bytes, stages_off, mask_off, scores_off, red_off, bytes;
+
+    __host__ __device__ Layout(int tile_, int dp_, int itemsize) {
+        tile = tile_;
+        dp = dp_;
+        chunks = dp * itemsize / 16;
+        split = 1;
+        while (split < 32 && chunks % (2 * split) == 0
+               && 2 * split * tile <= kThreads)
+            split *= 2;
+        red_rows = (32 % chunks == 0) ? kWarps : kThreads / chunks;
+        stage_bytes = (dp + 2 * tile * dp) * itemsize;
+        stages_off = 128;                  // 2 * kStages mbarriers first
+        mask_off = stages_off + kStages * stage_bytes;
+        scores_off = mask_off + kStages * tile * 4;
+        red_off = scores_off + tile * 4;
+        bytes = red_off + red_rows * dp * 4;
+    }
+};
+
+template <typename T> struct Vec;
+
+template <> struct Vec<float> {
+    static constexpr int n = 4;
+    __device__ static void load(const float* p, float (&x)[4]) {
+        const float4 u = *reinterpret_cast<const float4*>(p);
+        x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    }
+    __device__ static float from(float x) { return x; }
+    __device__ static float to(float x) { return x; }
+};
+
+template <> struct Vec<__nv_bfloat16> {
+    static constexpr int n = 8;
+    __device__ static void load(const __nv_bfloat16* p, float (&x)[8]) {
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+            const float2 f = __bfloat1622float2(h);
+            x[2 * i] = f.x;
+            x[2 * i + 1] = f.y;
+        }
+    }
+    __device__ static float from(__nv_bfloat16 x) {
+        return __bfloat162float(x);
+    }
+    __device__ static __nv_bfloat16 to(float x) {
+        return __float2bfloat16(x);
+    }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t n) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(n) : "memory");
+}
+
+// A copy that never lands (a fault in the launcher's sizes) traps after
+// about 2^24 polls instead of hanging the card: the launch then fails.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    for (uint32_t polls = 0; !done; ++polls) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+        if (polls == (1u << 24)) __trap();
+    }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t n, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(n), "r"(smem_addr(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy4_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kStages - 1 of this thread's groups are pending: the
+// group of the tile about to be reduced has landed.
+__device__ __forceinline__ void copy4_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
+}
+
+template <typename T, bool kBulk>
+__global__ void __launch_bounds__(kThreads, 4)
+target_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
                             const float* __restrict__ mask,
-                            float* __restrict__ out,
-                            int L, int D, float scale) {
-    __shared__ float q_s[kMaxD];
-    __shared__ float s_s[kTileL];
-    __shared__ float p_s[kTileL];
-    __shared__ float red_s[kThreads];
+                            T* __restrict__ out, int N, int L, int D,
+                            int tile, int dp, float scale) {
+    constexpr int kVec = Vec<T>::n;
+    extern __shared__ __align__(128) unsigned char smem[];
+    const Layout lay(tile, dp, sizeof(T));
+    // per stage: one barrier for q and k, one for v
+    uint64_t* k_bars = reinterpret_cast<uint64_t*>(smem);
+    uint64_t* v_bars = k_bars + kStages;
+    float* scores = reinterpret_cast<float*>(smem + lay.scores_off);
+    float* red = reinterpret_cast<float*>(smem + lay.red_off);
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const size_t row = blockIdx.x;
-    const float* k_row = k + row * L * D;
-    const float* v_row = v + row * L * D;
-    const float* m_row = mask + row * L;
+    const int C = lay.chunks;                 // 16-byte chunks of a row
+    const int S = lay.split;                  // threads per q.k
+    const int part = tid % S;
+    const int j_of_tid = tid / S;             // position of this q.k share
+    const int per_pass = kThreads / S;
+    const int G = kThreads / C;               // position groups of the v pass
+    const int g = tid / C;
+    const int c = tid - g * C;
+    const int tiles_per_row = (L + tile - 1) / tile;
+    const int rows = blockIdx.x < N
+        ? (N - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+    const int items = rows * tiles_per_row;
 
-    // numerator slice of this thread: column d over positions j = g mod G
-    const int G = kThreads / D;
-    const int g = tid / D;
-    const int d = tid - g * D;
-    const bool acc_active = g < G;
+    auto stage_of = [&](int s) {
+        return reinterpret_cast<T*>(smem + lay.stages_off
+                                    + s * lay.stage_bytes);
+    };
+    auto mask_of = [&](int s) {
+        return reinterpret_cast<float*>(smem + lay.mask_off) + s * tile;
+    };
+    // start the copies of work item `it` (row, tile) into stage it % kStages;
+    // each mask entry is fetched by the thread that will read it
+    auto issue = [&](int it) {
+        if (it < items) {
+            const int s = it % kStages;
+            const size_t row = blockIdx.x
+                + (size_t)(it / tiles_per_row) * gridDim.x;
+            const int t0 = (it % tiles_per_row) * tile;
+            const int tl = min(tile, L - t0);
+            if (kBulk && tid == 0) {
+                T* st = stage_of(s);
+                const uint32_t qb = D * sizeof(T);
+                const uint32_t kvb = (uint32_t)tl * D * sizeof(T);
+                // the stage was last read before a __syncthreads; order those
+                // generic-proxy reads before the async-proxy writes
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                mbar_expect_tx(&k_bars[s], qb + kvb);
+                bulk_copy(st, q + row * D, qb, &k_bars[s]);
+                bulk_copy(st + dp, k + (row * L + t0) * D, kvb, &k_bars[s]);
+                mbar_expect_tx(&v_bars[s], kvb);
+                bulk_copy(st + dp + (size_t)tile * dp,
+                          v + (row * L + t0) * D, kvb, &v_bars[s]);
+            }
+            if (part == 0) {
+                const float* m_src = mask + row * L + t0;
+                float* m_dst = mask_of(s);
+                for (int j = j_of_tid; j < tl; j += per_pass)
+                    copy4_async(m_dst + j, m_src + j);
+            }
+        }
+        copy4_commit();          // one group per item, empty or not
+    };
 
-    if (tid < D) q_s[tid] = q[row * D + tid];
+    if (kBulk && tid == 0) {
+        for (int s = 0; s < 2 * kStages; ++s) mbar_init(&k_bars[s]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
     __syncthreads();
+    for (int s = 0; s < kStages; ++s) issue(s);
 
-    float m_run = -INFINITY;
-    float l_run = 0.0f;
-    float acc = 0.0f;
+    float m_run = -INFINITY, l_run = 0.0f;
+    float acc[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = 0.0f;
 
-    for (int t0 = 0; t0 < L; t0 += kTileL) {
-        const int tl = min(kTileL, L - t0);
-        // scores of this tile: one warp per position
-        for (int j = warp; j < tl; j += kWarps) {
-            const float* k_l = k_row + (size_t)(t0 + j) * D;
-            float part = 0.0f;
-            for (int e = lane; e < D; e += 32) part += q_s[e] * k_l[e];
-            for (int off = 16; off > 0; off >>= 1)
-                part += __shfl_xor_sync(0xffffffffu, part, off);
-            if (lane == 0)
-                s_s[j] = m_row[t0 + j] > 0.0f ? part / scale : kMasked;
+    for (int it = 0; it < items; ++it) {
+        const int s = it % kStages;
+        const uint32_t parity = (it / kStages) & 1;
+        const size_t row = blockIdx.x
+            + (size_t)(it / tiles_per_row) * gridDim.x;
+        const int tidx = it % tiles_per_row;
+        const int t0 = tidx * tile;
+        const int tl = min(tile, L - t0);
+        T* st = stage_of(s);
+        const T* q_s = st;
+        const T* k_s = st + dp;
+        const T* v_s = st + dp + (size_t)tile * dp;
+        const float* m_s = mask_of(s);
+
+        if (kBulk) {
+            mbar_wait(&k_bars[s], parity);
+        } else {
+            // plain loads, each stage row padded to dp columns with zeros
+            for (int i = tid; i < dp; i += kThreads)
+                st[i] = Vec<T>::to(i < D ? Vec<T>::from(q[row * D + i])
+                                         : 0.0f);
+            for (int i = tid; i < tl * dp; i += kThreads) {
+                const int j = i / dp, d = i - j * dp;
+                const size_t src = (row * L + t0 + j) * D + d;
+                st[dp + i] = d < D ? k[src] : Vec<T>::to(0.0f);
+                st[dp + (size_t)tile * dp + i] = d < D ? v[src]
+                                                       : Vec<T>::to(0.0f);
+            }
+            __syncthreads();
+        }
+        copy4_wait();            // this thread's own mask entries
+
+        // scores: S threads per position, each a share of its chunks (the
+        // chunk order rotated by position, so that a warp's 16-byte reads
+        // fall in distinct banks), summed with shuffles
+        for (int j0 = 0; j0 < tl; j0 += per_pass) {
+            const int j = j0 + j_of_tid;
+            float dot = 0.0f;
+            if (j < tl) {
+                const T* k_j = k_s + (size_t)j * dp;
+                int ch = (part + S * j) % C;
+                for (int cc = part; cc < C; cc += S) {
+                    float qv[kVec], kv[kVec];
+                    Vec<T>::load(q_s + ch * kVec, qv);
+                    Vec<T>::load(k_j + ch * kVec, kv);
+#pragma unroll
+                    for (int e = 0; e < kVec; ++e)
+                        dot = fmaf(qv[e], kv[e], dot);
+                    ch += S;
+                    if (ch >= C) ch -= C;
+                }
+            }
+            for (int off = 1; off < S; off <<= 1)
+                dot += __shfl_xor_sync(0xffffffffu, dot, off);
+            if (j < tl && part == 0)
+                scores[j] = m_s[j] > 0.0f ? dot / scale : kMasked;
         }
         __syncthreads();
-        float m_tile = -INFINITY;
-        for (int j = 0; j < tl; ++j) m_tile = fmaxf(m_tile, s_s[j]);
-        const float m_new = fmaxf(m_run, m_tile);
+
+        // the tile's max and sum, taken by every warp alike
+        float mt = -INFINITY;
+        for (int j = lane; j < tl; j += 32) mt = fmaxf(mt, scores[j]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        const float m_new = fmaxf(m_run, mt);
+        float t_sum = 0.0f;
+        for (int j = lane; j < tl; j += 32) t_sum += __expf(scores[j] - m_new);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            t_sum += __shfl_xor_sync(0xffffffffu, t_sum, off);
         const float corr = __expf(m_run - m_new);
-        if (tid < tl) p_s[tid] = expf(s_s[tid] - m_new);
-        __syncthreads();
-        float p_sum = 0.0f;
-        for (int j = 0; j < tl; ++j) p_sum += p_s[j];
-        l_run = l_run * corr + p_sum;
-        if (acc_active) {
-            float a = acc * corr;
-            for (int j = g; j < tl; j += G)
-                a += p_s[j] * v_row[(size_t)(t0 + j) * D + d];
-            acc = a;
-        }
+        l_run = l_run * corr + t_sum;
         m_run = m_new;
-    }
 
-    // sum the G partial numerators of each column
-    red_s[tid] = acc_active ? acc : 0.0f;
-    __syncthreads();
-    if (tid < D) {
-        float total = 0.0f;
-        for (int i = 0; i < G; ++i) total += red_s[i * D + tid];
-        out[row * D + tid] = total / l_run;
+        // numerator: group g takes positions g, g + G, ... of chunk c
+        if (kBulk) mbar_wait(&v_bars[s], parity);
+        if (g < G) {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[e] *= corr;
+            for (int j = g; j < tl; j += G) {
+                const float p = __expf(scores[j] - m_new);
+                float vv[kVec];
+                Vec<T>::load(v_s + (size_t)j * dp + c * kVec, vv);
+#pragma unroll
+                for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vv[e], acc[e]);
+            }
+        }
+        __syncthreads();         // the stage and the scores are free
+        issue(it + kStages);
+
+        if (tidx == tiles_per_row - 1) {
+            // sum the groups' numerators: shuffles inside a warp where the
+            // groups tile it, then one pass over the rows of `red`
+            int slot = g;
+            bool writer = g < G;
+            if (32 % C == 0) {
+                for (int off = C; off < 32; off <<= 1) {
+#pragma unroll
+                    for (int e = 0; e < kVec; ++e)
+                        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+                }
+                slot = warp;
+                writer = lane < C;
+            }
+            if (writer) {
+#pragma unroll
+                for (int e = 0; e < kVec; ++e)
+                    red[slot * dp + c * kVec + e] = acc[e];
+            }
+            __syncthreads();
+            if (tid < D) {
+                float total = 0.0f;
+                for (int r = 0; r < lay.red_rows; ++r)
+                    total += red[r * dp + tid];
+                out[row * D + tid] = Vec<T>::to(total / l_run);
+            }
+            m_run = -INFINITY;
+            l_run = 0.0f;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[e] = 0.0f;
+        }
     }
+}
+
+// How a launch over rows of [L, D] is cut on one device: positions per
+// tile, padded row width, dynamic shared memory, and the blocks the card
+// holds at once (the persistent grid, capped by N at launch).
+struct Plan {
+    int tile, dp, bytes, resident;
+};
+
+// The plan of an instantiation, computed once per (device, L, D) under a
+// lock. The kernel's dynamic shared memory limit is a per-device attribute:
+// it is raised on each device to the largest plan made there.
+template <typename T, bool kBulk>
+cudaError_t get_plan(int L, int D, Plan* p) {
+    static std::mutex mu;
+    static std::map<std::tuple<int, int, int>, Plan> plans;
+    static std::map<int, int> smem_limit;
+    int device;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple(device, L, D);
+    const auto hit = plans.find(key);
+    if (hit != plans.end()) {
+        *p = hit->second;
+        return cudaSuccess;
+    }
+    constexpr int kVec = Vec<T>::n;
+    Plan n;
+    n.dp = (D + kVec - 1) / kVec * kVec;
+    const int fit = kStageBytes / (2 * n.dp * (int)sizeof(T));
+    n.tile = std::max(1, std::min({fit, kMaxTile, L}));
+    n.bytes = Layout(n.tile, n.dp, sizeof(T)).bytes;
+    auto kernel = target_attention_fwd_kernel<T, kBulk>;
+    int& limit = smem_limit[device];
+    if (n.bytes > std::max(limit, 48 * 1024)) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, n.bytes);
+        if (err != cudaSuccess) return err;
+        limit = n.bytes;
+    }
+    int sms, per_sm;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess)
+        return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, n.bytes)) != cudaSuccess)
+        return err;
+    n.resident = std::max(1, per_sm) * sms;
+    plans[key] = n;
+    *p = n;
+    return cudaSuccess;
+}
+
+template <typename T, bool kBulk>
+int launch_kernel(const T* q, const T* k, const T* v, const float* mask,
+                  T* out, int N, int L, int D, float scale,
+                  cudaStream_t stream) {
+    Plan p;
+    const cudaError_t err = get_plan<T, kBulk>(L, D, &p);
+    if (err != cudaSuccess) return (int)err;
+    target_attention_fwd_kernel<T, kBulk><<<std::min(N, p.resident),
+                                           kThreads, p.bytes, stream>>>(
+        q, k, v, mask, out, N, L, D, p.tile, p.dp, scale);
+    return (int)cudaGetLastError();
+}
+
+// Bulk copies need 16-byte aligned rows and base pointers.
+template <typename T>
+bool bulk_ok(int D, const void* q, const void* k, const void* v) {
+    auto aligned = [](const void* p) {
+        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    return (D * sizeof(T)) % 16 == 0 && aligned(q) && aligned(k)
+        && aligned(v);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           void* out, int N, int L, int D, float scale, void* stream) {
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    T* ot = static_cast<T*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return bulk_ok<T>(D, q, k, v)
+        ? launch_kernel<T, true>(qt, kt, vt, mask, ot, N, L, D, scale, s)
+        : launch_kernel<T, false>(qt, kt, vt, mask, ot, N, L, D, scale, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (a cudaStream_t). Pointers are device pointers to
-// contiguous f32 arrays: q [N, D], k and v [N, L, D], mask [N, L],
-// out [N, D]. Requires N >= 1, L >= 1 and 1 <= D <= kMaxD; the Python
-// wrapper (target_attention_cuda) checks them. Returns the
-// cudaGetLastError() code of the launch (0 on success).
-int target_attention_fwd_f32(const float* q, const float* k, const float* v,
-                             const float* mask, float* out, int N, int L,
+// Launch on `stream` (a cudaStream_t). Pointers are device pointers to
+// contiguous arrays: q [N, D], k and v [N, L, D] and out [N, D] of the
+// entry point's type, mask [N, L] f32. Requires N >= 1, L >= 1 and
+// 1 <= D <= 256; the Python wrapper (target_attention_cuda) checks them.
+// Returns the cudaGetLastError() code of the launch (0 on success).
+int target_attention_fwd_f32(const void* q, const void* k, const void* v,
+                             const float* mask, void* out, int N, int L,
                              int D, float scale, void* stream) {
-    target_attention_fwd_kernel<<<N, kThreads, 0, (cudaStream_t)stream>>>(
-        q, k, v, mask, out, L, D, scale);
-    return (int)cudaGetLastError();
+    return launch<float>(q, k, v, mask, out, N, L, D, scale, stream);
+}
+
+int target_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                              const float* mask, void* out, int N, int L,
+                              int D, float scale, void* stream) {
+    return launch<__nv_bfloat16>(q, k, v, mask, out, N, L, D, scale, stream);
 }
 
 const char* target_attention_error_string(int code) {

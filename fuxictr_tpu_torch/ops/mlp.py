@@ -4,17 +4,30 @@ Layer order as there: Linear -> BatchNorm (optional) -> activation, then
 an optional output Linear. Submodules are named like flax's
 auto-names (``Dense_{i}``, ``BatchNorm_{i}``) so converted parameters land
 by name. Dropout is an identity at inference and is not built; BatchNorm
-runs in eval form on its running statistics.
+runs in eval form on its running statistics, with flax's type rules.
 """
 
 from typing import Sequence, Union
 
+import torch
 from torch import nn
 
-from fuxictr_tpu_torch.ops.common import get_activation, xavier_normal_
+from fuxictr_tpu_torch.ops.common import (Dense, get_activation,
+                                          xavier_normal_)
 
 # flax.linen.BatchNorm's default epsilon
 _BN_EPS = 1e-5
+
+
+def _batch_norm_eval(x, bn):
+    """``flax.linen.BatchNorm`` at inference: ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias`` against the float32 running statistics, cast to
+    the common type of ``x``, scale and bias (bfloat16 when all three
+    are)."""
+    dtype = torch.promote_types(torch.promote_types(x.dtype, bn.weight.dtype),
+                                bn.bias.dtype)
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    return ((x - bn.running_mean) * mul + bn.bias).to(dtype)
 
 
 class MLP_Block(nn.Module):
@@ -33,7 +46,7 @@ class MLP_Block(nn.Module):
         if output_dim is not None:
             dims.append(output_dim)
         for i in range(len(dims) - 1):
-            lin = nn.Linear(dims[i], dims[i + 1])
+            lin = Dense(dims[i], dims[i + 1])
             xavier_normal_(lin.weight.data, generator)
             nn.init.zeros_(lin.bias)
             self.add_module(f"Dense_{i}", lin)
@@ -48,7 +61,7 @@ class MLP_Block(nn.Module):
         for i in range(self._n_hidden):
             x = getattr(self, f"Dense_{i}")(x)
             if self._batch_norm:
-                x = getattr(self, f"BatchNorm_{i}")(x)
+                x = _batch_norm_eval(x, getattr(self, f"BatchNorm_{i}"))
             x = self._acts[i](x)
         if self._has_output:
             x = getattr(self, f"Dense_{self._n_hidden}")(x)

@@ -8,9 +8,11 @@ the JAX model do.
 
 - :func:`target_attention_cuda` launches the hand-written CUDA kernel
   (``csrc/target_attention.cu``), built with nvcc for ``sm_90a`` on first
-  use into ``fuxictr_tpu_torch/_build/`` and loaded through ctypes.
+  use into ``fuxictr_tpu_torch/_build/`` and loaded through ctypes. It takes
+  float32 or bfloat16 q, k, v (one type for all three) and a float32 mask,
+  sums in float32, and returns q's type.
 - :func:`target_attention_reference` is the plain PyTorch version, line for
-  line the JAX package's ``_xla_target_attention``.
+  line the JAX package's ``_xla_target_attention``, in the inputs' type.
 - :func:`target_attention` picks by device: CUDA tensors go to the kernel,
   CPU tensors to the plain version. The kernel has no backward yet, so on
   CUDA it refuses inputs that require grad; it also needs a mask.
@@ -38,11 +40,20 @@ _build_lock = threading.Lock()
 
 
 def target_attention_reference(q, k, v, mask, scale):
-    """Plain PyTorch: q [N, D], k/v [N, L, D], mask [N, L] or None."""
+    """Plain PyTorch: q [N, D], k/v [N, L, D], mask [N, L] or None. Runs in
+    the type of q, k, v. The scale is rounded to that type first, as jnp
+    casts a Python scalar. In bfloat16 the softmax is written out as
+    ``jax.nn.softmax`` is, so that it rounds after the same steps as there;
+    float32 takes torch's softmax, the same function in one kernel."""
+    scale = float(torch.tensor(scale, dtype=q.dtype))
     scores = torch.einsum("bd,bld->bl", q, k) / scale
     if mask is not None:
         scores = torch.where(mask > 0, scores, _NEG_INF)
-    attn = torch.softmax(scores, dim=-1)
+    if q.dtype == torch.float32:
+        attn = torch.softmax(scores, dim=-1)
+    else:
+        unnormalized = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        attn = unnormalized / unnormalized.sum(dim=-1, keepdim=True)
     return torch.einsum("bl,bld->bd", attn, v)
 
 
@@ -82,36 +93,47 @@ def build():
     return so
 
 
+_ENTRY_POINTS = {torch.float32: "target_attention_fwd_f32",
+                 torch.bfloat16: "target_attention_fwd_bf16"}
+
+
 @functools.cache
 def _library():
     lib = ctypes.CDLL(build())
-    lib.target_attention_fwd_f32.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.target_attention_fwd_f32.restype = ctypes.c_int
+    for name in _ENTRY_POINTS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.target_attention_error_string.argtypes = [ctypes.c_int]
     lib.target_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def target_attention_cuda(q, k, v, mask, scale):
-    """Launch the CUDA kernel on the current stream. f32, contiguous:
-    q [N, D], k/v [N, L, D], mask [N, L] (required), D <= 256. The launcher
-    in the ``.cu`` trusts these checks."""
+    """Launch the CUDA kernel on the current stream. Contiguous q [N, D],
+    k/v [N, L, D], all float32 or all bfloat16; mask [N, L] float32
+    (required); D <= 256. Returns [N, D] in q's type. Raises on anything
+    else; it converts no type. The launcher in the ``.cu`` trusts these
+    checks."""
     if mask is None:
         raise ValueError("target_attention_cuda needs a mask [N, L]")
+    if q.dtype not in _ENTRY_POINTS or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"target_attention_cuda takes q, k, v all float32 or "
+                        f"all bfloat16, not {q.dtype}, {k.dtype}, {v.dtype}")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"target_attention_cuda takes a float32 mask, not "
+                        f"{mask.dtype}")
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v, mask)):
         raise ValueError("target_attention_cuda: all inputs must be on one "
                          "CUDA device")
-    if not all(t.dtype == torch.float32 for t in (q, k, v)):
-        raise TypeError("target_attention_cuda takes float32 q, k, v")
     N, L, D = k.shape
     if q.shape != (N, D) or v.shape != (N, L, D):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
     if not 1 <= D <= _MAX_D:
         raise ValueError(f"head dim {D} is outside 1..{_MAX_D}")
-    mask = mask.to(torch.float32)
     if mask.shape != (N, L):
         raise ValueError(f"mask {tuple(mask.shape)} is not [{N}, {L}]")
     if not all(t.is_contiguous() for t in (q, k, v, mask)):
@@ -122,7 +144,7 @@ def target_attention_cuda(q, k, v, mask, scale):
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        code = lib.target_attention_fwd_f32(
+        code = getattr(lib, _ENTRY_POINTS[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), N, L, D, float(scale), stream)
     if code != 0:

@@ -30,6 +30,7 @@ from fuxictr_tpu_torch.data.longctr_loader import (ITEMS_KEY, SEQ_MASK_KEY,
                                                    LongCTRDataLoader)
 from fuxictr_tpu_torch.features import FeatureMap
 from fuxictr_tpu_torch.models import get_model
+from fuxictr_tpu_torch.models.base import resolve_compute_dtype
 from fuxictr_tpu_torch.ops.attention import MultiHeadTargetAttention
 from fuxictr_tpu_torch.ops.common import get_activation
 from fuxictr_tpu_torch.ops.embedding import INVERSE_KEY, EmbeddingLayout
@@ -157,8 +158,32 @@ def test_not_in_whitelist_matches_jax(element, whitelist):
         == jax_config.not_in_whitelist(element, whitelist)
 
 
-@pytest.mark.parametrize("num_heads", [1, 2])
-def test_target_attention_layer_matches_jax(num_heads):
+def _bf16_tree(tree):
+    """Every leaf cast to bfloat16, as ``_predict_body`` casts the params."""
+    return jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.bfloat16),
+                                  tree)
+
+
+def _cast_call(module, dtype, *args):
+    """``module(*args)`` on its parameters cast to ``dtype``, buffers as
+    they are: what ``RankModel.compute_forward`` does."""
+    params = {n: p.to(dtype) for n, p in module.named_parameters()}
+    return torch.func.functional_call(module, params, args)
+
+
+# bf16 tolerance of the layers: the same ops in the same types and order on
+# both sides, so at most one bf16 step (2**-7 relative) where a sum taken in
+# another order rounds the other way
+LAYER_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+@pytest.mark.parametrize("num_heads,dtype", [
+    pytest.param(1, "float32", id="1"), pytest.param(2, "float32", id="2"),
+    pytest.param(1, "bfloat16", id="1-bfloat16"),
+    pytest.param(2, "bfloat16", id="2-bfloat16")])
+def test_target_attention_layer_matches_jax(num_heads, dtype):
+    """In bf16 the JAX layer gets bf16 params, target and history and an
+    f32 mask, as in the JAX SIM under compute_dtype=bfloat16."""
     rng = np.random.default_rng(num_heads)
     B, L, d_in, d_att = 6, 9, 16, 8
     x = rng.normal(size=(B, d_in)).astype(np.float32)
@@ -169,17 +194,31 @@ def test_target_attention_layer_matches_jax(num_heads):
         input_dim=d_in, attention_dim=d_att, num_heads=num_heads)
     params = layer.init(jax.random.PRNGKey(0), x, seq, mask)["params"]
     params = _random_like(jax.device_get(params), rng)
-    ref = layer.apply({"params": params}, x, seq, mask)
     port = MultiHeadTargetAttention(d_in, d_att, num_heads)
     port.load_state_dict(params_from_jax(params))
+    tdt = getattr(torch, dtype)
+    if dtype == "bfloat16":
+        params = _bf16_tree(params)
+    ref = layer.apply({"params": params}, jnp.asarray(x, dtype),
+                      jnp.asarray(seq, dtype), mask)
     with torch.no_grad():
-        out = port(*(torch.from_numpy(a) for a in (x, seq, mask)))
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
-                               atol=1e-5)
+        out = _cast_call(port, tdt, torch.from_numpy(x).to(tdt),
+                         torch.from_numpy(seq).to(tdt),
+                         torch.from_numpy(mask))
+    assert out.dtype == tdt and ref.dtype == dtype
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=LAYER_TOL[dtype], atol=LAYER_TOL[dtype])
 
 
-@pytest.mark.parametrize("batch_norm", [False, True])
-def test_mlp_block_matches_jax(batch_norm):
+@pytest.mark.parametrize("batch_norm,dtype", [
+    pytest.param(False, "float32", id="False"),
+    pytest.param(True, "float32", id="True"),
+    pytest.param(False, "bfloat16", id="False-bfloat16"),
+    pytest.param(True, "bfloat16", id="True-bfloat16")])
+def test_mlp_block_matches_jax(batch_norm, dtype):
+    """In bf16 the params are cast and the BatchNorm statistics stay f32,
+    as ``_predict_body`` leaves the model state."""
     rng = np.random.default_rng(7)
     x = rng.normal(size=(5, 12)).astype(np.float32)
     block = jax_mlp.MLP_Block(hidden_units=(16, 8), output_dim=1,
@@ -187,14 +226,20 @@ def test_mlp_block_matches_jax(batch_norm):
     variables = jax.device_get(block.init(jax.random.PRNGKey(0), x))
     params = _random_like(variables["params"], rng)
     stats = _random_like(variables.get("batch_stats", {}), rng)
-    ref = block.apply({"params": params, "batch_stats": stats}, x)
     port = MLP_Block(12, (16, 8), output_dim=1, batch_norm=batch_norm)
     port.load_state_dict(params_from_jax(params, stats))
     port.eval()
+    tdt = getattr(torch, dtype)
+    if dtype == "bfloat16":
+        params = _bf16_tree(params)
+    ref = block.apply({"params": params, "batch_stats": stats},
+                      jnp.asarray(x, dtype))
     with torch.no_grad():
-        out = port(torch.from_numpy(x))
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
-                               atol=1e-5)
+        out = _cast_call(port, tdt, torch.from_numpy(x).to(tdt))
+    assert out.dtype == tdt and ref.dtype == dtype
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=LAYER_TOL[dtype], atol=LAYER_TOL[dtype])
 
 
 @pytest.mark.parametrize("name", ["relu", "sigmoid", "tanh", "gelu", "elu",
@@ -253,6 +298,96 @@ def test_sim_evaluate_matches_jax(sim_pair):
                         ["AUC", "logloss"])
     for key in ("AUC", "logloss"):
         assert abs(out[key] - ref[key]) <= 1e-6, (key, out[key], ref[key])
+
+
+@pytest.fixture(scope="module")
+def sim_bf16(sim_pair):
+    """``sim_pair``'s JAX SIM, and a JAX SIM and a port SIM built with
+    ``compute_dtype="bfloat16"``, all three on the same weights."""
+    jax_model, jfm, port, tfm, params = sim_pair
+    params = dict(params, compute_dtype="bfloat16")
+    jax_bf16 = MODEL_REGISTRY["SIM"](jfm, **params)
+    jax_bf16.init_params()
+    jax_bf16.state = jax_bf16.state.replace(params=jax_model.state.params)
+    port_bf16 = get_model("SIM")(tfm, device="cpu", **params)
+    port_bf16.load_state_dict(port.state_dict())
+    return jax_model, jax_bf16, jfm, port_bf16, tfm, params
+
+
+@pytest.mark.parametrize("split,batch_size,dedup", [
+    ("train", 16, True), ("valid", 12, False)])
+def test_sim_bf16_predict_matches_jax(sim_bf16, split, batch_size, dedup):
+    """``compute_dtype="bfloat16"``: the port's predictions sit closer to
+    the JAX package's bf16 predictions than its f32 ones do, by at least
+    half: max |port - JAX bf16| <= max |JAX f32 - JAX bf16| / 2 (a port
+    that ignores compute_dtype is a whole gap away). The JAX side runs op
+    by op (``jax.disable_jit``), so that each op rounds to the type the
+    JAX code gives it: under jit, XLA's CPU fusions may keep f32 between
+    ops, which no op-by-op framework reproduces. The port runs the same ops
+    in the same types, so it also agrees within 1e-5, f32 sums of the
+    sigmoid in another order."""
+    jax_f32, jax_bf16, jfm, port, tfm, params = sim_bf16
+    path = os.path.join(DATA, f"{split}.parquet")
+    kw = dict(LOADER_KW, batch_size=batch_size, max_len=params["max_len"],
+              dedup_items=dedup)
+    with jax.disable_jit():
+        ref32 = jax_f32.predict(JaxLongCTRLoader(jfm, path, **kw))
+        ref = jax_bf16.predict(JaxLongCTRLoader(jfm, path, **kw))
+    out = port.predict(LongCTRDataLoader(tfm, path, **kw))
+    gap = np.abs(ref32 - ref).max()
+    err = np.abs(out - ref).max()
+    assert out.shape == ref.shape and gap > 1e-4
+    assert err <= gap / 2, (err, gap)
+    assert err <= 1e-5, err
+
+
+def test_bf16_predict_keeps_f32_master_weights(sim_bf16):
+    """A bf16 predict leaves the f32 parameters as they were and reuses one
+    cast copy; new weights (``load_state_dict``) refresh it."""
+    port, tfm, params = sim_bf16[3:]
+    path = os.path.join(DATA, "valid.parquet")
+    kw = dict(LOADER_KW, batch_size=12, max_len=params["max_len"])
+    saved = {k: v.clone() for k, v in port.state_dict().items()}
+    y = port.predict(LongCTRDataLoader(tfm, path, **kw))
+    cast = port._compute_params()
+    for name, p in port.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, saved[name])
+        assert cast[name].dtype == torch.bfloat16
+    port.predict(LongCTRDataLoader(tfm, path, **kw))
+    assert port._compute_params() is cast
+    try:
+        port.load_state_dict({k: 2 * v for k, v in saved.items()})
+        assert torch.equal(port._compute_params()["W_a.weight"],
+                           (2 * saved["W_a.weight"]).bfloat16())
+        assert not np.array_equal(
+            port.predict(LongCTRDataLoader(tfm, path, **kw)), y)
+    finally:
+        port.load_state_dict(saved)
+    np.testing.assert_array_equal(
+        port.predict(LongCTRDataLoader(tfm, path, **kw)), y)
+
+
+@pytest.mark.parametrize("value,expected", [
+    (None, None), ("float32", None), ("fp32", None), (torch.float32, None),
+    ("bfloat16", torch.bfloat16), ("bf16", torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+def test_compute_dtype_values(value, expected):
+    """The JAX package's names for f32 compute mean f32 (``None``)."""
+    assert resolve_compute_dtype(value) == expected
+
+
+@pytest.mark.parametrize("value", [
+    "float16", "fp16", "float64", "int8", "bfloat", torch.float16])
+def test_compute_dtype_that_cannot_be_honoured_raises(value):
+    """Nothing is ignored: a type the port's kernels do not take raises,
+    at the model's construction too."""
+    with pytest.raises(ValueError, match="compute_dtype"):
+        resolve_compute_dtype(value)
+    _, tfm = _feature_maps(_params())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        get_model("SIM")(tfm, device="cpu", embedding_dim=4,
+                         attention_dim=4, dnn_hidden_units=[8],
+                         compute_dtype=value)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

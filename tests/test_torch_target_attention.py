@@ -2,7 +2,8 @@
 (``fuxictr_tpu_torch/ops/target_attention.py``) against the JAX package:
 its XLA path ``_xla_target_attention`` and its Pallas kernel
 ``flash_target_attention`` run in interpret mode. Inputs come from a numpy
-seed. Tolerance: 2e-5 abs and rel, f32 sums taken in another order.
+seed. Tolerance: 2e-5 abs and rel in float32, f32 sums taken in another
+order; each bfloat16 case states its own.
 """
 
 import jax.numpy as jnp
@@ -15,6 +16,14 @@ from fuxictr_tpu.ops.pallas_kernels import (_xla_target_attention,
 from fuxictr_tpu_torch.ops import target_attention as ta
 
 TOL = 2e-5
+# bf16 against _xla_target_attention on the same bf16 inputs: the same ops
+# in the same type and order, so at most one bf16 step (2**-7 relative)
+# where a sum taken in another order rounds the other way
+TOL_BF16_XLA = 2 ** -7
+# bf16 against the Pallas kernel: its body sums in f32 and rounds once, the
+# plain version rounds after each step, so up to two bf16 steps on outputs
+# below 1
+TOL_BF16_PALLAS = 2 ** -6
 
 
 def _inputs(B, L, D, masked_rows=(), seed=0):
@@ -28,38 +37,60 @@ def _inputs(B, L, D, masked_rows=(), seed=0):
     return q, k, v, mask
 
 
-def _port(q, k, v, mask, scale):
-    return ta.target_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)),
-                               scale).numpy()
+def _port(q, k, v, mask, scale, dtype="float32"):
+    """The port on CPU tensors: q, k, v in ``dtype``, mask float32; the
+    result as float32 numpy."""
+    dtype = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    out = ta.target_attention(q, k, v, torch.from_numpy(mask), scale)
+    assert out.dtype == dtype
+    return out.float().numpy()
 
 
-@pytest.mark.parametrize("B,L,D,masked_rows,scale", [
-    (8, 64, 16, (), None),           # tests/test_pallas_kernels.py shapes
-    (5, 100, 24, (), None),
-    (6, 40, 16, (0, 3), None),       # fully masked rows
-    (4, 50, 8, (), 1.0),             # use_scale=False
-])
-def test_plain_matches_xla(B, L, D, masked_rows, scale):
+_XLA_CASES = [
+    ((8, 64, 16, (), None), "8-64-16-masked_rows0-None"),  # test_pallas shapes
+    ((5, 100, 24, (), None), "5-100-24-masked_rows1-None"),
+    ((6, 40, 16, (0, 3), None), "6-40-16-masked_rows2-None"),  # masked rows
+    ((4, 50, 8, (), 1.0), "4-50-8-masked_rows3-1.0"),      # use_scale=False
+]
+
+
+@pytest.mark.parametrize("B,L,D,masked_rows,scale,dtype", [
+    pytest.param(*case, dtype, id=name + suffix)
+    for dtype, suffix in (("float32", ""), ("bfloat16", "-bfloat16"))
+    for case, name in _XLA_CASES])
+def test_plain_matches_xla(B, L, D, masked_rows, scale, dtype):
     q, k, v, mask = _inputs(B, L, D, masked_rows)
     scale = float(np.sqrt(D)) if scale is None else scale
-    ref = _xla_target_attention(jnp.asarray(q), jnp.asarray(k),
-                                jnp.asarray(v), jnp.asarray(mask), scale)
-    np.testing.assert_allclose(_port(q, k, v, mask, scale), np.asarray(ref),
-                               rtol=TOL, atol=TOL)
+    q, k, v = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    ref = _xla_target_attention(q, k, v, jnp.asarray(mask), scale)
+    out = _port(*(np.array(a.astype(jnp.float32)) for a in (q, k, v)),
+                mask, scale, dtype)
+    tol = TOL if dtype == "float32" else TOL_BF16_XLA
+    assert ref.dtype == dtype
+    np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
 
 
 # Only rows with a valid position: on a fully masked row the Pallas kernel
 # divides by its padded L (the port and the XLA path average over the real
 # L), and the kernel always scales by sqrt(D), so scale=1.0 has no
 # counterpart there.
-@pytest.mark.parametrize("B,L,D", [(8, 64, 16), (5, 100, 24)])
-def test_plain_matches_pallas_interpret(B, L, D):
+@pytest.mark.parametrize("B,L,D,dtype", [
+    pytest.param(8, 64, 16, "float32", id="8-64-16"),
+    pytest.param(5, 100, 24, "float32", id="5-100-24"),
+    pytest.param(8, 64, 16, "bfloat16", id="8-64-16-bfloat16"),
+    pytest.param(5, 100, 24, "bfloat16", id="5-100-24-bfloat16")])
+def test_plain_matches_pallas_interpret(B, L, D, dtype):
     q, k, v, mask = _inputs(B, L, D)
-    ref = flash_target_attention(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), jnp.asarray(mask),
+    q, k, v = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    ref = flash_target_attention(q, k, v, jnp.asarray(mask),
                                  block_b=8, block_l=32, interpret=True)
-    np.testing.assert_allclose(_port(q, k, v, mask, float(np.sqrt(D))),
-                               np.asarray(ref), rtol=TOL, atol=TOL)
+    out = _port(*(np.array(a.astype(jnp.float32)) for a in (q, k, v)),
+                mask, float(np.sqrt(D)), dtype)
+    tol = TOL if dtype == "float32" else TOL_BF16_PALLAS
+    np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
 
 
 def test_fully_masked_row_is_mean_of_v():
@@ -116,3 +147,20 @@ def test_kernel_wrapper_requires_a_mask():
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(2, 10, 8))
     with pytest.raises(ValueError, match="mask"):
         ta.target_attention_cuda(q, k, v, None, 1.0)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,mask_dtype", [
+    (torch.float32, torch.bfloat16, torch.float32),     # mixed q and k/v
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float16, torch.float16, torch.float32),      # no fp16 entry point
+    (torch.float64, torch.float64, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),   # the mask is f32
+    (torch.float32, torch.float32, torch.float64),
+])
+def test_kernel_wrapper_refuses_mixed_or_unsupported_types(
+        q_dtype, kv_dtype, mask_dtype):
+    """Checked before the device: the wrapper converts no type."""
+    q, k, v, mask = (torch.from_numpy(a) for a in _inputs(2, 10, 8))
+    with pytest.raises(TypeError):
+        ta.target_attention_cuda(q.to(q_dtype), k.to(kv_dtype),
+                                 v.to(kv_dtype), mask.to(mask_dtype), 1.0)
