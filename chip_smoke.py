@@ -6,10 +6,10 @@
 Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the port from ``fuxictr_tpu_torch/ops/csrc``
-   and print what ``ptxas`` says of each entry point, with the shared memory
-   and blocks per SM of a launch at SIM's shape;
-3. hold each kernel against its plain PyTorch version on the card, in
+2. build every CUDA source of the port from ``fuxictr_tpu_torch/ops/csrc``
+   (one nvcc per source, started together) and print what ``ptxas`` says
+   of each kernel instance;
+3. hold K1's forward against its plain PyTorch version on the card, in
    float32 and in bfloat16, at the shapes SIM gives it and a few more, and
    time kernel, plain version and the one PyTorch call that computes the
    same function (a yardstick only);
@@ -20,19 +20,36 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    once with ``compute_dtype="bfloat16"`` as ``scripts/run_longctr_scale.py``
    runs it; check that each path launched every kernel exactly as often as
    its forwards call it, and that its outputs agree with a run whose
-   attention takes the plain version.
+   attention takes the plain version;
+5. hold the backward kernels against their plain versions in both types:
+   K1's backward at every ``K1_SHAPES`` shape, and the deduped expand's
+   backward (K3) at SIM's full-width item field and two small cases (rows
+   shared by two fields; bucket padding), with their times, bounds and
+   library yardsticks;
+6. train SIM at the same width through ``RankDataLoader`` and
+   ``RankModel.fit`` (shuffled train loader, validation), in float32 and
+   with ``compute_dtype="bfloat16"``: the loss is finite, every parameter
+   moved, each kernel launched exactly as often as the steps and the
+   evaluation call it, a step repeated from the same state gives the same
+   bits, and a step's gradients and parameters agree with the same step
+   through the plain versions; train step ms (CUDA events) and ``fit``
+   examples/s.
 
 Prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a GPU or outside a checkout. ``--profile`` adds a
-``torch.profiler`` breakdown of one SIM forward by kernel, per type.
+``torch.profiler`` breakdown by kernel of one SIM forward and of one SIM
+train step, per type.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import OrderedDict
 
@@ -54,10 +71,23 @@ Y_TOL_BF16 = 3e-4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20       # > 50 MB L2: every timed launch starts cold
+SPIN_CYCLES = 2_000_000          # ~1 ms at the H100's clock: the host's lead
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# f32 keeps the name of the first records of K1
-KERNEL_NAMES = {torch.float32: "target_attention",
-                torch.bfloat16: "target_attention_bf16"}
+# kernel names in the `kernels` line, per type; f32 keeps the name of the
+# first records of each kernel
+KERNEL_NAMES = {
+    "fwd": {torch.float32: "target_attention",
+            torch.bfloat16: "target_attention_bf16"},
+    "bwd": {torch.float32: "target_attention_bwd",
+            torch.bfloat16: "target_attention_bwd_bf16"},
+    "expand_bwd": {torch.float32: "table_gather_expand_bwd",
+                   torch.bfloat16: "table_gather_expand_bwd_bf16"},
+}
+SOURCES = ("target_attention", "table_gather_expand")
+# K3 backward against its plain version computed in f32 from the same g:
+# f32 sums of up to a third of a million rows in another order (1e-5 of
+# the largest row), and in bf16 one rounding of the output on top
+K3_TOL = {torch.float32: TOL, torch.bfloat16: 2 ** -8}
 
 FULL = dict(n_users=60_000, n_items=30_000, n_cates=200, min_len=300,
             max_len=1000, batch=1024, full_batches=4, tail=300,
@@ -84,13 +114,17 @@ def card_identity():
 
 def time_ms(fn, reps=25, warmup=3):
     """Median device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush, from CUDA events around the launch alone."""
+    L2 flush, from CUDA events around the launch alone. A spin kernel holds
+    the device after the flush while the host enqueues the start event and
+    ``fn``'s launches, so that a wrapper's Python work is not counted as
+    device time when it outlasts the flush."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -159,6 +193,175 @@ def check_target_attention(dtype):
                 lambda: sdpa(q4, k4, v4, attn_mask=m4, scale=1.0 / scale)),
             bound_ms=bound, bound_by=bound_by))
         print(json.dumps({"target_attention": rows[-1]}), flush=True)
+    return rows, worst
+
+
+def k1_bwd_bound(N, L, D, itemsize):
+    """Least time for K1's backward: q, out, dout read and dq written
+    ([N, D] each), k, v read and dk, dv written ([N, L, D] each) at their
+    item size, the f32 mask and [N, 2] statistics read once, over the
+    memory rate; or its 8*N*L*D f32 operations (q.k, dout.v, dv, dk, dq)
+    over the f32 rate."""
+    bytes_moved = (itemsize * (4 * N * D + 4 * N * L * D) + 4 * N * L
+                   + 8 * N)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * N * L * D / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_target_attention_bwd(dtype):
+    """K1's backward against its plain version (computed in f32 from the
+    same inputs, the forward's out included, and rounded once) at every
+    shape in ``dtype``; times kernel, plain version (in ``dtype``) and the
+    backward of ``scaled_dot_product_attention``. Returns per-shape rows
+    and the max abs error."""
+    from fuxictr_tpu_torch.ops.target_attention import (
+        target_attention_backward_reference, target_attention_bwd_cuda,
+        target_attention_cuda)
+    rtol, atol = K1_TOL[dtype]
+    rows, worst = [], 0.0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for N, L, D, fully_masked in K1_SHAPES:
+        q, k, v, mask = k1_inputs(N, L, D, fully_masked, dtype)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        dout = torch.randn(N, D, device="cuda", generator=g).to(dtype)
+        scale = D ** 0.5
+        out, stats = target_attention_cuda(q, k, v, mask, scale,
+                                           with_stats=True)
+        grads = target_attention_bwd_cuda(q, k, v, mask, out, dout, stats,
+                                          scale)
+        ref = target_attention_backward_reference(
+            q.float(), k.float(), v.float(), mask, scale, dout.float(),
+            out=out.float())
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b).abs().max())
+                  for a, b in zip(grads, ref))
+        if any(a.dtype != dtype or not torch.allclose(a.float(), b, rtol=rtol,
+                                                      atol=atol)
+               for a, b in zip(grads, ref)):
+            raise AssertionError(
+                f"target_attention_bwd {DTYPES[dtype]} N={N} L={L} D={D}: "
+                f"max abs err {err} exceeds {atol} abs / {rtol} rel")
+        worst = max(worst, err)
+        q4, k4, v4 = (t.detach().clone().requires_grad_()
+                      for t in (q[:, None, None, :], k[:, None], v[:, None]))
+        y4 = sdpa(q4, k4, v4, attn_mask=(mask > 0)[:, None, None, :],
+                  scale=1.0 / scale)
+        d4 = dout[:, None, None, :]
+        bound, bound_by = k1_bwd_bound(N, L, D, q.element_size())
+        rows.append(OrderedDict(
+            dtype=DTYPES[dtype], N=N, L=L, D=D,
+            fully_masked_rows=fully_masked, max_abs_err=err,
+            ms=time_ms(lambda: target_attention_bwd_cuda(
+                q, k, v, mask, out, dout, stats, scale)),
+            plain_ms=time_ms(lambda: target_attention_backward_reference(
+                q, k, v, mask, scale, dout, out=out)),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y4, (q4, k4, v4), d4, retain_graph=True)),
+            bound_ms=bound, bound_by=bound_by))
+        print(json.dumps({"target_attention_bwd": rows[-1]}), flush=True)
+    return rows, worst
+
+
+def expand_bwd_bound(N, U, V, k, D, itemsize, masked):
+    """Least time for K3's backward: g [N, k*D] read at its item size, the
+    int64 inv [N] and ids [k, U] (and the bool mask) read, dtable [V, D]
+    written once, over the memory rate; or its N*k*D f32 additions over
+    the f32 rate. The helper sorts are bookkeeping inside the kernel's
+    time, not in its bound."""
+    bytes_moved = (itemsize * (N * k * D + V * D) + 8 * (N + k * U)
+                   + (k * U if masked else 0))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = N * k * D / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def expand_cases(shape, seed):
+    """K3's backward inputs: SIM's item_id field in the first batch of the
+    full-width loader (real dedup inverse, bucket-padded ids, the 90,002-row
+    table), and two small synthetic ones: two fields of one table whose
+    rows coincide, with a padding mask; and a large bucket of which few
+    slots are used. Each: (name, inv, ids [k, U], mask or None, V, D)."""
+    from fuxictr_tpu_torch.data.longctr_loader import (ITEMS_KEY,
+                                                       LongCTRDataLoader)
+    from fuxictr_tpu_torch.ops.embedding import INVERSE_KEY, EmbeddingLayout
+    data, user_seqs, items = make_side_tables(shape, seed)
+    fm = sim_feature_map(shape)
+    loader = LongCTRDataLoader(fm, data, batch_size=shape["batch"],
+                               user_info=user_seqs, item_info=items,
+                               max_len=shape["max_len"])
+    batch = next(iter(loader))[ITEMS_KEY]
+    plan = EmbeddingLayout(fm, shape["embedding_dim"]).fields["item_id"]
+    V = EmbeddingLayout(fm, shape["embedding_dim"]).tables[
+        plan["table"]]["rows"]
+    cases = [("sim_item_id", batch[INVERSE_KEY].astype(np.int64),
+              (batch["item_id"] + plan["offset"])[None].astype(np.int64),
+              None, V, shape["embedding_dim"])]
+    rng = np.random.default_rng(seed)
+    for name, N, U, used, V, k in (("shared_rows", 200_000, 8192, 6000,
+                                    5000, 2),
+                                   ("bucket_padding", 50_000, 16384, 3000,
+                                    100_000, 1)):
+        inv = rng.integers(0, used, N)
+        ids = np.zeros((k, U), np.int64)
+        ids[:, :used] = rng.integers(0, V, (k, used))
+        mask = np.zeros((k, U), bool)
+        mask[:, :used] = rng.random((k, used)) > 0.1
+        cases.append((name, inv, ids, mask if k > 1 else None, V,
+                      shape["embedding_dim"]))
+    return cases
+
+
+def check_expand_bwd(dtype, cases):
+    """K3's backward against its plain version (computed in f32 from the
+    same g, rounded once) per case in ``dtype``, two launches bitwise
+    equal; times kernel (its helper sorts included), plain version (in
+    ``dtype``) and the autograd backward of ``table[ids][inv]``. Returns
+    per-case rows and the max abs error."""
+    from fuxictr_tpu_torch.ops.embedding import (
+        table_gather_expand_bwd_cuda, table_gather_expand_bwd_reference)
+    rows, worst = [], 0.0
+    for name, inv, ids, mask, V, D in cases:
+        k, U = ids.shape
+        N = inv.shape[0]
+        g = torch.Generator(device="cuda").manual_seed(2)
+        grad = torch.randn(N, k * D, device="cuda", generator=g).to(dtype)
+        inv_t, ids_t = (torch.from_numpy(a).cuda() for a in (inv, ids))
+        mask_t = None if mask is None else torch.from_numpy(mask).cuda()
+        out = table_gather_expand_bwd_cuda(grad, inv_t, ids_t, mask_t, V)
+        again = table_gather_expand_bwd_cuda(grad, inv_t, ids_t, mask_t, V)
+        ref = table_gather_expand_bwd_reference(grad.float(), inv_t, ids_t,
+                                                mask_t, V)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        atol = TOL * float(ref.abs().max())
+        if not torch.equal(out, again) or out.dtype != dtype \
+                or not torch.allclose(out.float(), ref, rtol=K3_TOL[dtype],
+                                      atol=atol):
+            raise AssertionError(
+                f"table_gather_expand_bwd {DTYPES[dtype]} {name}: max abs "
+                f"err {err} (limit {atol} abs / {K3_TOL[dtype]} rel), or "
+                f"two launches differ")
+        worst = max(worst, err)
+        table = torch.zeros(V, D, dtype=dtype, device="cuda",
+                            requires_grad=True)
+        y = (table[ids_t[0]][inv_t] if mask_t is None else torch.cat(
+            [table[ids_t[i]] * mask_t[i][:, None].to(dtype)
+             for i in range(k)], dim=-1)[inv_t])
+        bound, bound_by = expand_bwd_bound(N, U, V, k, D,
+                                           grad.element_size(),
+                                           mask is not None)
+        rows.append(OrderedDict(
+            dtype=DTYPES[dtype], case=name, N=N, U=U,
+            used=int(np.unique(inv).size), V=V, k=k, D=D, max_abs_err=err,
+            ms=time_ms(lambda: table_gather_expand_bwd_cuda(
+                grad, inv_t, ids_t, mask_t, V)),
+            plain_ms=time_ms(lambda: table_gather_expand_bwd_reference(
+                grad, inv_t, ids_t, mask_t, V)),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y, table, grad, retain_graph=True)),
+            bound_ms=bound, bound_by=bound_by))
+        print(json.dumps({"table_gather_expand_bwd": rows[-1]}), flush=True)
     return rows, worst
 
 
@@ -346,19 +549,279 @@ def profile_forward(model, batch, top=12):
                         for e in events[:top]]}
 
 
+def _plain_forward(q, k, v, mask, scale, with_stats=False):
+    out = plain_in_f32(q, k, v, mask, scale)
+    return (out, None) if with_stats else out
+
+
+def _plain_backward(q, k, v, mask, out, dout, stats, scale):
+    from fuxictr_tpu_torch.ops.target_attention import \
+        target_attention_backward_reference
+    grads = target_attention_backward_reference(
+        q.float(), k.float(), v.float(), mask, scale, dout.float(),
+        out=out.float())
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def _plain_expand_backward(g, inv, ids_stack, mask_stack, num_rows):
+    from fuxictr_tpu_torch.ops.embedding import \
+        table_gather_expand_bwd_reference
+    return table_gather_expand_bwd_reference(
+        g.float(), inv, ids_stack, mask_stack, num_rows).to(g.dtype)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of the training path swapped for its plain
+    version, computed in f32 from the same inputs and rounded once to
+    their type, as the kernels compute."""
+    from fuxictr_tpu_torch.ops import embedding as emb
+    from fuxictr_tpu_torch.ops import target_attention as ta
+    swaps = [(ta, "target_attention_cuda", _plain_forward),
+             (ta, "target_attention_bwd_cuda", _plain_backward),
+             (emb, "table_gather_expand_bwd_cuda", _plain_expand_backward)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def snapshot(model):
+    """The model's parameters, buffers and optimizer state, copied."""
+    opt = model._optimizer
+    return ({k: v.clone() for k, v in model.state_dict().items()},
+            [m.clone() for m in opt.mu], [n.clone() for n in opt.nu],
+            opt.count, opt.lr)
+
+
+def restore(model, snap):
+    state, mu, nu, count, lr = snap
+    model.load_state_dict(state)
+    opt = model._optimizer
+    for dst, src in zip(opt.mu + opt.nu, mu + nu):
+        dst.copy_(src)
+    opt.count, opt.lr = count, lr
+
+
+# A train step's gradients with every kernel against the same step with
+# the plain versions, each tensor's max abs difference over its largest
+# entry: in f32 sums in another order (the table's rows sum up to a third
+# of a million positions); in bf16 the kernels' and the plain versions'
+# outputs differ by one bf16 rounding where f32 sums in another order
+# round the other way, and the bf16 layers below carry that on. Measured
+# on an H100: 4.3e-7 (f32) and 4.3e-3 (bf16).
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+# ... the parameters after one Adam step from the post-fit state on those
+# gradients, max abs difference (measured 1.2e-7 and 3.0e-6); Adam divides
+# by the gradients' running scale, so this is checked on parameters too
+PARAM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# ... and the step's loss, relative: f32 sums in another order; in bf16 the
+# attention outputs differ as in serving (Y_TOL_BF16)
+LOSS_TOL = {torch.float32: TOL, torch.bfloat16: Y_TOL_BF16}
+
+
+def train_sim(device, shape, compute_dtype=None, seed=2019, profile=False):
+    """SIM trained through ``RankDataLoader`` and ``fit`` on ``device``;
+    returns the report and the launch counts of the ``fit`` run."""
+    from fuxictr_tpu_torch.data.loader import RankDataLoader
+    from fuxictr_tpu_torch.data.longctr_loader import LongCTRDataLoader
+    from fuxictr_tpu_torch.models import get_model
+    from fuxictr_tpu_torch.ops import embedding as emb
+    from fuxictr_tpu_torch.ops import target_attention as ta
+    dtype = torch.bfloat16 if compute_dtype else torch.float32
+    data, user_seqs, items = make_side_tables(shape, seed)
+    # train: two full batches and the partial one; valid: the rest
+    n_train = 2 * shape["batch"] + shape["tail"]
+    train_data = {c: a[:n_train] for c, a in data.items()}
+    valid_data = {c: a[n_train:] for c, a in data.items()}
+    fm = sim_feature_map(shape)
+    train_gen, valid_gen = RankDataLoader(
+        fm, stage="train", train_data=train_data, valid_data=valid_data,
+        batch_size=shape["batch"], shuffle=True,
+        data_loader=LongCTRDataLoader, user_info=user_seqs, item_info=items,
+        max_len=shape["max_len"], seed=seed).make_iterator()
+    ckpt_dir = tempfile.TemporaryDirectory()
+    model = get_model("SIM")(
+        fm, embedding_dim=shape["embedding_dim"],
+        attention_dim=shape["attention_dim"], num_heads=shape["num_heads"],
+        dnn_hidden_units=shape["dnn_hidden_units"],
+        short_seq_len=shape["short_seq_len"], topk=shape["topk"],
+        compute_dtype=compute_dtype, device=device, seed=seed,
+        model_root=ckpt_dir.name)
+    # spread the tables as serve_sim does, so that attention is not uniform
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for table in model.embedding.parameters():
+            table.copy_(torch.randn(table.shape, generator=g) * 0.5)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses = []
+    step = model.train_step
+    model.train_step = lambda batch: losses.append(step(batch)) or losses[-1]
+
+    # the main path: what a user calls, through the loaders
+    torch.cuda.synchronize()
+    ta.target_attention_cuda.launches = 0
+    ta.target_attention_bwd_cuda.launches = 0
+    emb.table_gather_expand_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    model.fit(train_gen, validation_data=valid_gen, epochs=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {"fwd": ta.target_attention_cuda.launches,
+                "bwd": ta.target_attention_bwd_cuda.launches,
+                "expand_bwd": emb.table_gather_expand_bwd_cuda.launches}
+    del model.train_step
+
+    steps = len(train_gen)
+    expected = {"fwd": 2 * steps + 2 * len(valid_gen), "bwd": 2 * steps,
+                "expand_bwd": 2 * steps}
+    if launches != expected:
+        raise AssertionError(f"SIM training in {DTYPES[dtype]} launched "
+                             f"{launches}, expected {expected}")
+    loss_values = [float(x) for x in losses]
+    if len(loss_values) != steps or not np.all(np.isfinite(loss_values)):
+        raise AssertionError(f"train losses {loss_values}")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p, before[n])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still}")
+    if not os.path.exists(model.checkpoint):
+        raise AssertionError("fit saved no best weights")
+
+    # a step twice from one state: the same bits
+    placed = [model._place_batch(b) for b in valid_gen]
+    snap = snapshot(model)
+    model.train_step(placed[0])
+    first = [p.detach().clone() for p in model.parameters()]
+    restore(model, snap)
+    model.train_step(placed[0])
+    if not all(torch.equal(a, b) for a, b in zip(first, model.parameters())):
+        raise AssertionError("two train steps from one state differ")
+
+    # the same step with the plain versions: gradients and parameters
+    restore(model, snap)
+    loss_k, grads_k = model.loss_and_grads(placed[0])
+    with plain_kernels():
+        loss_p, grads_p = model.loss_and_grads(placed[0])
+    # torch's max, not Python's: a NaN must show, and fail the checks
+    grad_err = float(torch.stack([
+        (a - b).abs().max() / b.abs().max().clamp(min=1e-30)
+        for a, b in zip(grads_k, grads_p)]).max())
+    model._optimizer.step(grads_k)
+    kernel_params = [p.detach().clone() for p in model.parameters()]
+    restore(model, snap)
+    model._optimizer.step(grads_p)
+    param_err = float(torch.stack([
+        (a - b).abs().max()
+        for a, b in zip(kernel_params, model.parameters())]).max())
+    restore(model, snap)
+    if not (grad_err <= GRAD_TOL[dtype] and param_err <= PARAM_TOL[dtype]
+            and abs(float(loss_k) - float(loss_p))
+            <= LOSS_TOL[dtype] * abs(float(loss_p))):
+        raise AssertionError(
+            f"SIM train step in {DTYPES[dtype]}: gradients with the kernels "
+            f"differ from the plain versions' by {grad_err} of the largest "
+            f"(limit {GRAD_TOL[dtype]}), parameters by {param_err} (limit "
+            f"{PARAM_TOL[dtype]}), loss {float(loss_k)} vs {float(loss_p)}")
+
+    # train step time over placed batches, CUDA events
+    train_placed = [model._place_batch(b) for b in train_gen]
+    model.train_step(train_placed[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in train_placed:
+        model.train_step(b)
+    end.record()
+    torch.cuda.synchronize()
+    n_rows = len(train_data["clk"])
+    report = OrderedDict(
+        compute_dtype=compute_dtype or "float32", train_rows=n_rows,
+        train_batches=steps, valid_batches=len(valid_gen),
+        batch_size=shape["batch"], launches=launches,
+        losses=loss_values,
+        fit_s=t1 - t0, fit_examples_per_s=n_rows / (t1 - t0),
+        train_window_examples_per_s=model._window_rates[-1],
+        train_step_ms=start.elapsed_time(end) / len(train_placed),
+        grad_max_rel_diff_vs_plain=grad_err,
+        param_max_abs_diff_vs_plain=param_err,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if profile:
+        report["profile"] = profile_train_step(model, train_placed[0])
+    ckpt_dir.cleanup()
+    return report, launches
+
+
+def profile_train_step(model, batch, top=14):
+    """Device time of one SIM train step by kernel name (torch.profiler),
+    and the shares of K1's forward and backward and K3's backward."""
+    from torch.profiler import ProfilerActivity, profile
+    model.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    events = [e for e in averages
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time_total for e in events)
+    events.sort(key=lambda e: -e.device_time_total)
+
+    def share(*names):
+        return sum(e.device_time_total for e in events
+                   if any(n in e.key for n in names)) / 1e3
+
+    return {"wall_ms": wall * 1e3, "device_ms": total / 1e3,
+            "host_ops": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                         for e in host[:top]],
+            "k1_fwd_ms": share("target_attention_fwd_kernel"),
+            "k1_bwd_ms": share("target_attention_bwd_kernel"),
+            "k3_bwd_ms": share("slot_bounds_kernel", "tile_sums_kernel",
+                               "row_sums_kernel"),
+            "kernels": [[e.key[:80], e.device_time_total / 1e3, e.count]
+                        for e in events[:top]]}
+
+
 def ptxas_report(log_path):
-    """Registers, stack and spills of each kernel instance from the build's
-    ``-Xptxas -v`` log, keyed as ``f32/bulk``, ``bf16/plain``, ..."""
+    """Registers, stack and spills of each kernel instance from a build's
+    ``-Xptxas -v`` log, keyed by kernel and its template arguments, as
+    ``target_attention_fwd_kernel f32 bulk stats``."""
     report, key = OrderedDict(), None
     with open(log_path) as fd:
         for line in fd:
             if "Compiling entry function" in line:
-                dtype = "bf16" if "__nv_bfloat16" in line else "f32"
-                key = f"{dtype}/{'bulk' if 'Lb1E' in line else 'plain'}"
+                name = re.search(r"\d+([a-z_]+_kernel)", line).group(1)
+                parts = [name]
+                if f"{name}I" in line:          # templated on the type
+                    parts.append("bf16" if "__nv_bfloat16" in line else "f32")
+                flags = re.search(r"Lb([01])ELb([01])E", line)
+                if flags:
+                    parts += [("bulk" if flags.group(1) == "1" else "plain")
+                              + (" stats" if flags.group(2) == "1" else "")]
+                key = " ".join(parts)
                 report[key] = []
             elif key and ("registers" in line or "spill" in line):
                 report[key].append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in report.items()}
+
+
+def kernel_entry(kind, dtype, launches, worst, row, source, replaces):
+    return OrderedDict(
+        name=KERNEL_NAMES[kind][dtype], dtype=DTYPES[dtype], route="cuda",
+        source=source, replaces=replaces, launches=launches,
+        max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=row["library_ms"])
 
 
 def main(argv):
@@ -366,7 +829,7 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from fuxictr_tpu_torch.ops import target_attention as ta
+    from fuxictr_tpu_torch.ops import cuda_build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -376,11 +839,14 @@ def main(argv):
     print(f"card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    so = ta.build()
-    print(json.dumps({"build": {"kernels_ported": ["target_attention"],
-                                "library": os.path.relpath(so),
-                                "seconds": time.perf_counter() - t0}}))
-    print(json.dumps({"ptxas": ptxas_report(so + ".log")}), flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
+    print(json.dumps({"build": {
+        "sources": {n: os.path.relpath(so) for n, so in libs.items()},
+        "seconds": time.perf_counter() - t0}}))
+    for name, so in libs.items():
+        print(json.dumps({"ptxas": {name: ptxas_report(so + ".log")}}),
+              flush=True)
     k1 = {dt: check_target_attention(dt) for dt in DTYPES}
 
     served, kernels = {}, []
@@ -400,14 +866,10 @@ def main(argv):
         rows, worst = k1[dtype]
         main_row = next(r for r in rows if (r["N"], r["L"], r["D"])
                         == MAIN_SHAPE and not r["fully_masked_rows"])
-        kernels.append(OrderedDict(
-            name=KERNEL_NAMES[dtype], dtype=DTYPES[dtype], route="cuda",
-            source="fuxictr_tpu_torch/ops/csrc/target_attention.cu",
-            replaces="fuxictr_tpu/ops/pallas_kernels.py:109",
-            launches=launches["target_attention"], max_abs_err=worst,
-            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
+        kernels.append(kernel_entry(
+            "fwd", dtype, launches["target_attention"], worst, main_row,
+            "fuxictr_tpu_torch/ops/csrc/target_attention.cu",
+            "fuxictr_tpu/ops/pallas_kernels.py:109"))
     # the bf16 path must really compute in bf16: its predictions differ
     # from the f32 path's
     gap = float(np.abs(served[torch.bfloat16] - served[torch.float32]).max())
@@ -415,6 +877,29 @@ def main(argv):
     if not gap > 0.0:
         raise AssertionError("SIM served with compute_dtype='bfloat16' gave "
                              "the float32 predictions")
+
+    k1_bwd = {dt: check_target_attention_bwd(dt) for dt in DTYPES}
+    cases = expand_cases(FULL, seed=2019)
+    k3_bwd = {dt: check_expand_bwd(dt, cases) for dt in DTYPES}
+
+    for dtype, compute_dtype in ((torch.float32, None),
+                                 (torch.bfloat16, "bfloat16")):
+        report, launches = train_sim(device, FULL, compute_dtype,
+                                     profile=profile)
+        print(json.dumps({"sim_training": report}), flush=True)
+        rows, worst = k1_bwd[dtype]
+        main_row = next(r for r in rows if (r["N"], r["L"], r["D"])
+                        == MAIN_SHAPE and not r["fully_masked_rows"])
+        kernels.append(kernel_entry(
+            "bwd", dtype, launches["bwd"], worst, main_row,
+            "fuxictr_tpu_torch/ops/csrc/target_attention.cu",
+            "autodiff of fuxictr_tpu/ops/pallas_kernels.py:25-30"))
+        rows, worst = k3_bwd[dtype]
+        kernels.append(kernel_entry(
+            "expand_bwd", dtype, launches["expand_bwd"], worst,
+            next(r for r in rows if r["case"] == "sim_item_id"),
+            "fuxictr_tpu_torch/ops/csrc/table_gather_expand.cu",
+            "fuxictr_tpu/ops/embedding.py:214-218,253-264"))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""Config loading: the two-file YAML layout of ``fuxictr_tpu.config``.
+"""Config loading, the two-file YAML layout of ``fuxictr_tpu.config``, and
+the early-stop ``Monitor``.
 
 ``model_config.yaml`` holds a ``Base`` section merged under each expid
 section (the expid wins); ``dataset_config.yaml`` is keyed by dataset_id.
@@ -63,6 +64,22 @@ def load_dataset_config(config_dir, dataset_id):
             params.update(cfg[dataset_id])
             return params
     raise RuntimeError(f"dataset_id={dataset_id} is not found in config.")
+
+
+class Monitor:
+    """Weighted sum of validation metrics for early stopping, e.g.
+    ``{"AUC": 1, "logloss": -1}``; a string names one metric of weight 1."""
+
+    def __init__(self, kv):
+        if isinstance(kv, str):
+            kv = {kv: 1}
+        self.kv_pairs = kv
+
+    def get_value(self, logs):
+        return sum(logs.get(k, 0) * w for k, w in self.kv_pairs.items())
+
+    def get_metrics(self):
+        return list(self.kv_pairs.keys())
 
 
 def not_in_whitelist(element, whitelist=()):

@@ -12,6 +12,10 @@ its device.
 Each table may be a parquet path (read with pandas, imported only then) or
 in-memory numpy: a dict of columns for the interaction and item tables, a
 sequence of 1-D id arrays for the user table.
+
+``shuffle=True`` permutes the rows anew each epoch with the loader's own
+``np.random.RandomState(seed)``: the permutations the JAX loader draws from
+numpy's global generator after ``seed_everything(seed)``.
 """
 
 import numpy as np
@@ -65,11 +69,11 @@ class LongCTRDataLoader:
 
     def __init__(self, feature_map, data_path, batch_size=32, shuffle=False,
                  user_info=None, item_info=None, max_len=50,
-                 dedup_items=True, dedup_min_bucket=4096, **kwargs):
-        if shuffle:
-            raise NotImplementedError(
-                "shuffling is for training, which this port does not do yet")
+                 dedup_items=True, dedup_min_bucket=4096, seed=2019,
+                 **kwargs):
         self.feature_map = feature_map
+        self.shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
         self.batch_size = batch_size
         self.max_len = max_len
         self.dedup_items = dedup_items
@@ -101,9 +105,11 @@ class LongCTRDataLoader:
 
     def __iter__(self):
         L = self.max_len
+        order = np.arange(self.num_samples)
+        if self.shuffle:
+            self._rng.shuffle(order)
         for start in range(0, self.num_samples, self.batch_size):
-            idx = np.arange(start, min(start + self.batch_size,
-                                       self.num_samples))
+            idx = order[start:start + self.batch_size]
             n = len(idx)
             batch = {col: arr[idx] for col, arr in self.columns.items()}
             seqs = pad_sequences(

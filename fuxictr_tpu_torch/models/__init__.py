@@ -1,4 +1,5 @@
-"""Models: the inference ``RankModel`` and the registry of the zoo."""
+"""Models: ``RankModel`` (training and inference) and the registry of the
+zoo."""
 
 from fuxictr_tpu_torch.models.base import RankModel
 from fuxictr_tpu_torch.models.registry import (MODEL_REGISTRY, get_model,

@@ -1,5 +1,5 @@
 """Long-sequence CTR models, ported from ``fuxictr_tpu.models.zoo.longctr``:
-SIM with the soft search unit, for inference.
+SIM with the soft search unit, for training and inference.
 
 Batch layout (``data/longctr_loader.py``): flat user/context features, the
 ``"__items__"`` dict of item features over ``[B*(L+1)]`` rows (history,
@@ -54,19 +54,25 @@ def topk_gather(seq_emb, mask, scores, k):
 @register_model
 class SIM(_LongCTRBase):
     """SIM, soft search: GSU qk-scores -> top-k -> ESU target attention.
-    The auxiliary GSU head is computed as in the JAX model; it feeds only
-    the training loss."""
+    The auxiliary GSU head feeds only the training loss,
+    ``alpha * GSU + beta * ESU`` (:meth:`add_loss`). ``net_dropout`` drops
+    in both MLPs; ``attention_dropout`` in both attentions (on the CPU
+    only: the kernel has none)."""
 
     def __init__(self, feature_map, model_id="SIM", embedding_dim=10,
                  dnn_hidden_units=(512, 128, 64), dnn_activations="relu",
-                 attention_dim=64, num_heads=1, gsu_type="soft",
-                 short_seq_len=50, topk=50, batch_norm=False,
-                 product_pooling=False, device=None, seed=2019, **kwargs):
+                 attention_dropout=0.0, attention_dim=64, num_heads=1,
+                 gsu_type="soft", short_seq_len=50, topk=50, alpha=1,
+                 beta=1, net_dropout=0.0, batch_norm=False,
+                 accumulation_steps=1, product_pooling=False, device=None,
+                 seed=2019, **kwargs):
         super().__init__(feature_map, model_id=model_id, device=device,
-                         seed=seed, **kwargs)
+                         seed=seed, accumulation_steps=accumulation_steps,
+                         **kwargs)
         if gsu_type != "soft" or product_pooling:
             raise NotImplementedError(
                 "SIM is ported with gsu_type='soft' and no product pooling")
+        self._alpha, self._beta = float(alpha), float(beta)
         g = self.generator
         self.short_seq_len = short_seq_len
         self.topk = topk
@@ -75,7 +81,8 @@ class SIM(_LongCTRBase):
         self.embedding = FeatureEmbedding(feature_map, embedding_dim,
                                           generator=g)
         attn = dict(input_dim=self.item_dim, attention_dim=attention_dim,
-                    num_heads=num_heads, generator=g)
+                    num_heads=num_heads, dropout_rate=attention_dropout,
+                    generator=g)
         self.short_attention = MultiHeadTargetAttention(**attn)
         self.W_a = Dense(self.item_dim, attention_dim, bias=False)
         self.W_b = Dense(self.item_dim, attention_dim, bias=False)
@@ -83,7 +90,8 @@ class SIM(_LongCTRBase):
         xavier_normal_(self.W_b.weight.data, g)
         mlp = dict(hidden_units=tuple(dnn_hidden_units),
                    hidden_activations=dnn_activations, output_dim=1,
-                   batch_norm=batch_norm, generator=g)
+                   batch_norm=batch_norm, dropout_rates=net_dropout,
+                   generator=g)
         self.dnn_aux = MLP_Block(ctx_dim + 2 * self.item_dim, **mlp)
         self.long_attention = MultiHeadTargetAttention(**attn)
         self.dnn = MLP_Block(ctx_dim + 3 * self.item_dim, **mlp)
@@ -115,3 +123,12 @@ class SIM(_LongCTRBase):
         y = self.dnn(torch.cat(
             emb_list + [target_emb, short_interest, long_interest], dim=-1))
         return {"y_pred": y, "y_aux": y_aux}
+
+    def add_loss(self, outputs, y_true, weights):
+        """GSU + ESU joint loss: each the mask-weighted mean of the
+        per-example loss over ``sum(weights)`` (at least 1)."""
+        w = weights.reshape(-1, 1)
+        wsum = torch.clamp(torch.sum(w), min=1.0)
+        loss_esu = torch.sum(self._loss_fn(outputs["y_pred"], y_true) * w)
+        loss_gsu = torch.sum(self._loss_fn(outputs["y_aux"], y_true) * w)
+        return self._alpha * (loss_gsu / wsum) + self._beta * (loss_esu / wsum)

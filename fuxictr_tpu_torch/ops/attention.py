@@ -2,16 +2,18 @@
 
 ``MultiHeadTargetAttention`` projects one target per row and its history,
 splits heads, and runs single-query attention over ``[B*H, L, Dh]`` through
-``ops/target_attention.py`` (the CUDA kernel on the GPU). The projections
-are ``Dense`` products (``ops/common.py``), named as the flax ones are.
-In bfloat16 the layer takes bfloat16 q, k, v and keeps the mask float32,
-as the JAX layer does.
+``ops/target_attention.py`` (the CUDA kernels on the GPU, forward and
+backward). The projections are ``Dense`` products (``ops/common.py``),
+named as the flax ones are. In bfloat16 the layer takes bfloat16 q, k, v
+and keeps the mask float32, as the JAX layer does.
 """
 
+import torch
 from torch import nn
 
-from fuxictr_tpu_torch.ops.common import Dense, xavier_normal_
-from fuxictr_tpu_torch.ops.target_attention import target_attention
+from fuxictr_tpu_torch.ops.common import Dense, Dropout, xavier_normal_
+from fuxictr_tpu_torch.ops.target_attention import (target_attention,
+                                                    target_attention_weights)
 
 
 def _split_heads(x, num_heads):
@@ -35,12 +37,15 @@ class MultiHeadTargetAttention(nn.Module):
 
     ``attention_fn`` is the attention of one query per row; it defaults to
     :func:`target_attention`, and a test may swap in another function of
-    the same signature. Attention dropout is a training feature and is not
-    applied."""
+    the same signature. ``dropout_rate`` drops attention weights in
+    training, as the JAX layer does; the kernel has no dropout, so in
+    training on CUDA a rate above 0 raises, and on the CPU the plain
+    weights are dropped."""
 
     def __init__(self, input_dim=64, attention_dim=64, num_heads=1,
-                 use_scale=True, generator=None):
+                 use_scale=True, dropout_rate=0.0, generator=None):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         self.att_dim = attention_dim
         self.num_heads = num_heads
         head_dim = attention_dim // num_heads
@@ -64,6 +69,15 @@ class MultiHeadTargetAttention(nn.Module):
         if mask is not None:
             mask = mask.repeat_interleave(H, dim=0) if H > 1 else mask
             mask = mask.contiguous()
-        out = self.attention_fn(q.contiguous(), k, v, mask, self.scale)
+        if self.training and self.dropout.rate > 0:
+            if q.is_cuda:
+                raise NotImplementedError(
+                    "attention_dropout > 0 in training: the target-attention "
+                    "kernel has no dropout yet")
+            attn = self.dropout(target_attention_weights(q, k, mask,
+                                                         self.scale))
+            out = torch.einsum("bl,bld->bd", attn, v)
+        else:
+            out = self.attention_fn(q.contiguous(), k, v, mask, self.scale)
         out = _merge_heads(out.reshape(B, H, 1, dh))[:, 0, :]
         return self.W_o(out)

@@ -1,9 +1,10 @@
-"""The initializer, the activations and the mixed-type rules of the ported
-layers. Activations named in configs resolve through an explicit table
-(never ``eval``); the initializer draws from the ``torch.Generator`` it is
-given. ``Dense`` and ``einsum`` promote mixed input types as ``flax.linen.
-Dense`` and ``jnp.einsum`` do, where torch's ``F.linear`` and ``einsum``
-refuse them: a bfloat16 model meets float32 masks (``models/base.py``)."""
+"""The initializer, the activations, the regularizer grammar, dropout and
+the mixed-type rules of the ported layers. Activations and regularizers
+named in configs resolve through explicit parsers (never ``eval``); the
+initializer and dropout draw from the ``torch.Generator`` they are given.
+``Dense`` and ``einsum`` promote mixed input types as ``flax.linen.Dense``
+and ``jnp.einsum`` do, where torch's ``F.linear`` and ``einsum`` refuse
+them: a bfloat16 model meets float32 masks (``models/base.py``)."""
 
 import math
 
@@ -23,6 +24,52 @@ def xavier_normal_(tensor, generator):
     std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
     return torch.nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std,
                                        2.0 * std, generator=generator)
+
+
+def get_regularizer(reg):
+    """A regularizer spec as ``[(p_norm, weight)]``, the grammar of
+    ``fuxictr_tpu.ops.common.get_regularizer``: a number is an L2 weight
+    (0 is none), ``"l1(x)"``, ``"l2(x)"``, ``"l1_l2(x,y)"``; ``None`` is
+    none. Anything else raises."""
+    reg_pair = []
+    if isinstance(reg, (int, float)):
+        if reg != 0:
+            reg_pair.append((2, float(reg)))
+    elif isinstance(reg, str):
+        if reg.startswith("l1(") or reg.startswith("l2("):
+            reg_pair.append((int(reg[1]),
+                             float(reg.rstrip(")").split("(")[-1])))
+        elif reg.startswith("l1_l2"):
+            l1_reg, l2_reg = reg.rstrip(")").split("(")[-1].split(",")
+            reg_pair.append((1, float(l1_reg)))
+            reg_pair.append((2, float(l2_reg)))
+        else:
+            raise NotImplementedError(f"regularizer={reg} is not supported.")
+    elif reg is not None:
+        raise NotImplementedError(f"regularizer={reg} is not supported.")
+    return reg_pair
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout`` in training: each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zeroed;
+    the identity in eval mode or at rate 0. The keep mask draws from
+    ``generator`` (on the input's device), which the model sets
+    (``RankModel``); its stream is torch's, not JAX's."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
 
 _ACTIVATIONS = {

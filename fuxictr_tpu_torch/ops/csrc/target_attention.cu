@@ -47,6 +47,25 @@
 // is all zero gets weights exp(-1e9 - (-1e9)) = 1 at every real position
 // and returns the mean of v over L, as the XLA path and the model do (the
 // Pallas kernel, padding L to its tile, divides by the padded length).
+//
+// Training. The forward's training entry points (`..._fwd_stats_...`) also
+// write each row's running max m and denominator l, two f32 values: a
+// single log-sum-exp would not do, since in f32 -1e9 + log L rounds back
+// to -1e9 and a fully masked row would get p = 1 instead of 1/L. The
+// backward (`..._bwd_...`), which the Pallas kernel lacks (JAX trains
+// _xla_target_attention through XLA's autodiff), takes q, k, v, mask, out,
+// dout and those statistics and writes, per row and position l,
+//
+//     p_l  = exp(s_l - m) / l,                  dv_l = p_l * dout,
+//     ds_l = mask > 0 ? p_l * (dout.v_l - dout.out) : 0,
+//     dk_l = ds_l / scale * q,                  dq = sum_l ds_l / scale * k_l,
+//
+// the gradient JAX's autodiff gives (the `where` on the mask gates it; a
+// fully masked row gets dv = dout / L and dq = dk = 0). Sums in f32, each
+// output rounded once. Bound: bytes again (k, v read, dk, dv written: four
+// L*D rows per row against ~9*L*D flops). One block per row, a warp per
+// position at a time, lanes along D; the statistics make it one pass over
+// the row whatever L, and dq is summed over the warps once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,13 +203,15 @@ __device__ __forceinline__ void copy4_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
 }
 
-template <typename T, bool kBulk>
+// kStats: also write each row's (m, l) to stats[2 * row], stats[2 * row + 1]
+template <typename T, bool kBulk, bool kStats>
 __global__ void __launch_bounds__(kThreads, 4)
 target_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const float* __restrict__ mask,
-                            T* __restrict__ out, int N, int L, int D,
-                            int tile, int dp, float scale) {
+                            T* __restrict__ out, float* __restrict__ stats,
+                            int N, int L, int D, int tile, int dp,
+                            float scale) {
     constexpr int kVec = Vec<T>::n;
     extern __shared__ __align__(128) unsigned char smem[];
     const Layout lay(tile, dp, sizeof(T));
@@ -385,6 +406,10 @@ target_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     total += red[r * dp + tid];
                 out[row * D + tid] = Vec<T>::to(total / l_run);
             }
+            if (kStats && tid == 0) {
+                stats[2 * row] = m_run;
+                stats[2 * row + 1] = l_run;
+            }
             m_run = -INFINITY;
             l_run = 0.0f;
 #pragma unroll
@@ -403,7 +428,7 @@ struct Plan {
 // The plan of an instantiation, computed once per (device, L, D) under a
 // lock. The kernel's dynamic shared memory limit is a per-device attribute:
 // it is raised on each device to the largest plan made there.
-template <typename T, bool kBulk>
+template <typename T, bool kBulk, bool kStats>
 cudaError_t get_plan(int L, int D, Plan* p) {
     static std::mutex mu;
     static std::map<std::tuple<int, int, int>, Plan> plans;
@@ -424,7 +449,7 @@ cudaError_t get_plan(int L, int D, Plan* p) {
     const int fit = kStageBytes / (2 * n.dp * (int)sizeof(T));
     n.tile = std::max(1, std::min({fit, kMaxTile, L}));
     n.bytes = Layout(n.tile, n.dp, sizeof(T)).bytes;
-    auto kernel = target_attention_fwd_kernel<T, kBulk>;
+    auto kernel = target_attention_fwd_kernel<T, kBulk, kStats>;
     int& limit = smem_limit[device];
     if (n.bytes > std::max(limit, 48 * 1024)) {
         err = cudaFuncSetAttribute(
@@ -445,16 +470,16 @@ cudaError_t get_plan(int L, int D, Plan* p) {
     return cudaSuccess;
 }
 
-template <typename T, bool kBulk>
+template <typename T, bool kBulk, bool kStats>
 int launch_kernel(const T* q, const T* k, const T* v, const float* mask,
-                  T* out, int N, int L, int D, float scale,
+                  T* out, float* stats, int N, int L, int D, float scale,
                   cudaStream_t stream) {
     Plan p;
-    const cudaError_t err = get_plan<T, kBulk>(L, D, &p);
+    const cudaError_t err = get_plan<T, kBulk, kStats>(L, D, &p);
     if (err != cudaSuccess) return (int)err;
-    target_attention_fwd_kernel<T, kBulk><<<std::min(N, p.resident),
-                                           kThreads, p.bytes, stream>>>(
-        q, k, v, mask, out, N, L, D, p.tile, p.dp, scale);
+    target_attention_fwd_kernel<T, kBulk, kStats>
+        <<<std::min(N, p.resident), kThreads, p.bytes, stream>>>(
+            q, k, v, mask, out, stats, N, L, D, p.tile, p.dp, scale);
     return (int)cudaGetLastError();
 }
 
@@ -468,17 +493,124 @@ bool bulk_ok(int D, const void* q, const void* k, const void* v) {
         && aligned(v);
 }
 
-template <typename T>
+template <typename T, bool kStats>
 int launch(const void* q, const void* k, const void* v, const float* mask,
-           void* out, int N, int L, int D, float scale, void* stream) {
+           void* out, float* stats, int N, int L, int D, float scale,
+           void* stream) {
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
     T* ot = static_cast<T*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return bulk_ok<T>(D, q, k, v)
-        ? launch_kernel<T, true>(qt, kt, vt, mask, ot, N, L, D, scale, s)
-        : launch_kernel<T, false>(qt, kt, vt, mask, ot, N, L, D, scale, s);
+        ? launch_kernel<T, true, kStats>(qt, kt, vt, mask, ot, stats, N, L,
+                                         D, scale, s)
+        : launch_kernel<T, false, kStats>(qt, kt, vt, mask, ot, stats, N, L,
+                                          D, scale, s);
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int kBwdWarps = kThreads / 32;
+constexpr int kPerLane = kThreads / 32;     // columns per lane at D = 256
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+}
+
+// One block per row (rows blockIdx.x, +gridDim.x, ...). Lane `lane` of
+// every warp holds columns lane, lane + 32, ... of q, dout and its share
+// of dq; warp w takes positions w, w + kBwdWarps, ..., each with two
+// shuffle sums (q.k_l and dout.v_l). Plain loads: any element-aligned row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+target_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const float* __restrict__ mask,
+                            const T* __restrict__ out,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ stats,
+                            T* __restrict__ dq, T* __restrict__ dk,
+                            T* __restrict__ dv, int N, int L, int D,
+                            float scale) {
+    __shared__ float red[kBwdWarps][kThreads];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int row = blockIdx.x; row < N; row += gridDim.x) {
+        const size_t r = row;
+        float qv[kPerLane], gv[kPerLane], dqa[kPerLane];
+        float delta = 0.0f;                       // dout . out
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+            const int c = lane + 32 * i;
+            const bool ok = c < D;
+            qv[i] = ok ? Vec<T>::from(q[r * D + c]) : 0.0f;
+            gv[i] = ok ? Vec<T>::from(dout[r * D + c]) : 0.0f;
+            if (ok) delta = fmaf(gv[i], Vec<T>::from(out[r * D + c]), delta);
+            dqa[i] = 0.0f;
+        }
+        delta = warp_sum(delta);
+        const float m = stats[2 * r];
+        const float l = stats[2 * r + 1];
+#pragma unroll 2
+        for (int j = warp; j < L; j += kBwdWarps) {
+            const size_t base = (r * L + j) * D;
+            float kv[kPerLane], vv[kPerLane];
+            float s = 0.0f, dp = 0.0f;
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i) {
+                const int c = lane + 32 * i;
+                const bool ok = c < D;
+                kv[i] = ok ? Vec<T>::from(k[base + c]) : 0.0f;
+                vv[i] = ok ? Vec<T>::from(v[base + c]) : 0.0f;
+                s = fmaf(qv[i], kv[i], s);
+                dp = fmaf(gv[i], vv[i], dp);
+            }
+            s = warp_sum(s);
+            dp = warp_sum(dp);
+            const bool valid = mask[r * L + j] > 0.0f;
+            const float p = __expf((valid ? s / scale : kMasked) - m) / l;
+            const float dsc = valid ? p * (dp - delta) / scale : 0.0f;
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i) {
+                const int c = lane + 32 * i;
+                if (c < D) {
+                    dv[base + c] = Vec<T>::to(p * gv[i]);
+                    dk[base + c] = Vec<T>::to(dsc * qv[i]);
+                    dqa[i] = fmaf(dsc, kv[i], dqa[i]);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+            const int c = lane + 32 * i;
+            if (c < D) red[warp][c] = dqa[i];
+        }
+        __syncthreads();
+        for (int c = threadIdx.x; c < D; c += kThreads) {
+            float total = 0.0f;
+            for (int w = 0; w < kBwdWarps; ++w) total += red[w][c];
+            dq[r * D + c] = Vec<T>::to(total);
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v,
+               const float* mask, const void* out, const void* dout,
+               const float* stats, void* dq, void* dk, void* dv, int N,
+               int L, int D, float scale, void* stream) {
+    target_attention_bwd_kernel<T><<<std::min(N, 1 << 16), kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), mask, static_cast<const T*>(out),
+        static_cast<const T*>(dout), stats, static_cast<T*>(dq),
+        static_cast<T*>(dk), static_cast<T*>(dv), N, L, D, scale);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -493,13 +625,54 @@ extern "C" {
 int target_attention_fwd_f32(const void* q, const void* k, const void* v,
                              const float* mask, void* out, int N, int L,
                              int D, float scale, void* stream) {
-    return launch<float>(q, k, v, mask, out, N, L, D, scale, stream);
+    return launch<float, false>(q, k, v, mask, out, nullptr, N, L, D, scale,
+                                stream);
 }
 
 int target_attention_fwd_bf16(const void* q, const void* k, const void* v,
                               const float* mask, void* out, int N, int L,
                               int D, float scale, void* stream) {
-    return launch<__nv_bfloat16>(q, k, v, mask, out, N, L, D, scale, stream);
+    return launch<__nv_bfloat16, false>(q, k, v, mask, out, nullptr, N, L,
+                                        D, scale, stream);
+}
+
+// The training forward: as above, and stats [N, 2] f32 gets each row's
+// running max and denominator for the backward.
+int target_attention_fwd_stats_f32(const void* q, const void* k,
+                                   const void* v, const float* mask,
+                                   void* out, float* stats, int N, int L,
+                                   int D, float scale, void* stream) {
+    return launch<float, true>(q, k, v, mask, out, stats, N, L, D, scale,
+                               stream);
+}
+
+int target_attention_fwd_stats_bf16(const void* q, const void* k,
+                                    const void* v, const float* mask,
+                                    void* out, float* stats, int N, int L,
+                                    int D, float scale, void* stream) {
+    return launch<__nv_bfloat16, true>(q, k, v, mask, out, stats, N, L, D,
+                                       scale, stream);
+}
+
+// The backward: q, out, dout, dq [N, D] and k, v, dk, dv [N, L, D] of the
+// entry point's type, mask [N, L] and stats [N, 2] (from the training
+// forward) f32, all contiguous. Same requirements and return code.
+int target_attention_bwd_f32(const void* q, const void* k, const void* v,
+                             const float* mask, const void* out,
+                             const void* dout, const float* stats, void* dq,
+                             void* dk, void* dv, int N, int L, int D,
+                             float scale, void* stream) {
+    return launch_bwd<float>(q, k, v, mask, out, dout, stats, dq, dk, dv, N,
+                             L, D, scale, stream);
+}
+
+int target_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                              const float* mask, const void* out,
+                              const void* dout, const float* stats, void* dq,
+                              void* dk, void* dv, int N, int L, int D,
+                              float scale, void* stream) {
+    return launch_bwd<__nv_bfloat16>(q, k, v, mask, out, dout, stats, dq, dk,
+                                     dv, N, L, D, scale, stream);
 }
 
 const char* target_attention_error_string(int code) {

@@ -5,17 +5,26 @@ are packed into ONE ``[rows, dim]`` table with per-field row offsets, under
 the JAX package's table names (``table_d{dim}`` / ``table_d{dim}b{k}``), so
 its parameters copy over as they are. ``padding_idx`` rows read as zeros.
 
-This slice ports the forward of categorical fields, which is what SIM
-serves: the stacked ``[B, F]`` gather per table, the loader-deduped expand
-through ``__item_inverse__``, and the per-field lookup. The gathers are
-plain torch indexing; numeric, sequence, ``embedding``-type, pretrained and
+Ported so far: categorical fields, which is what SIM runs: the stacked
+``[B, F]`` gather per table, the loader-deduped expand through
+``__item_inverse__``, and the per-field lookup. Forwards are plain torch
+indexing. The plain gathers train through autograd, as the JAX package's
+``table_gather`` is a plain ``jnp.take`` under autodiff. The deduped expand
+(:func:`table_gather_expand`, :func:`table_gather_expand_multi`) is an
+autograd Function whose backward is the JAX package's custom VJP: on CUDA a
+hand-written deterministic kernel (``csrc/table_gather_expand.cu``), on the
+CPU its plain version. Numeric, sequence, ``embedding``-type, pretrained and
 encoded fields raise.
 """
 
+import ctypes
+import functools
 from collections import OrderedDict
 
 import torch
 from torch import nn
+
+from fuxictr_tpu_torch.ops import cuda_build
 
 
 # batch-dict key carrying the dedup inverse index (data/longctr_loader.py)
@@ -25,6 +34,149 @@ INVERSE_KEY = "__item_inverse__"
 DEFAULT_TABLE_SIZE_BUCKETS = (8192, 131072)
 # fuxictr_tpu's default embedding_initializer, "normal(std=1e-4)"
 TABLE_INIT_STD = 1e-4
+
+
+# sorted positions per warp in the kernel's first pass
+_TILE = 256
+
+
+def table_gather_expand_bwd_reference(g, inv, ids_stack, mask_stack,
+                                      num_rows):
+    """Plain gradient of the deduped expand, as the JAX package's
+    ``_tge_bwd`` / ``_tgem_bwd`` compute it, in g's type: segment-sum
+    ``g`` [N, k*D] into a [U, k*D] temp through ``inv``, then add each
+    field's D columns, times its mask, into a [num_rows, D] table through
+    ``ids_stack[i]``, one field after another."""
+    k, U = ids_stack.shape
+    D = g.shape[1] // k
+    seg = torch.zeros(U, g.shape[1], dtype=g.dtype,
+                      device=g.device).index_add_(0, inv, g)
+    grad = torch.zeros(num_rows, D, dtype=g.dtype, device=g.device)
+    for i in range(k):
+        part = seg[:, i * D:(i + 1) * D]
+        if mask_stack is not None:
+            part = part * mask_stack[i][:, None].to(part.dtype)
+        grad.index_add_(0, ids_stack[i], part)
+    return grad
+
+
+_EXPAND_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+@functools.cache
+def _expand_library():
+    lib = ctypes.CDLL(cuda_build.build("table_gather_expand"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for tag in _EXPAND_TAGS.values():
+        fn = getattr(lib, f"table_gather_expand_bwd_{tag}")
+        fn.argtypes = [P] * 10 + [I] * 4 + [ctypes.c_longlong, I, P]
+        fn.restype = ctypes.c_int
+    lib.table_gather_expand_error_string.argtypes = [ctypes.c_int]
+    lib.table_gather_expand_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def table_gather_expand_bwd_cuda(g, inv, ids_stack, mask_stack, num_rows):
+    """Launch the backward kernel on the current stream: ``g`` [N, k*D]
+    float32 or bfloat16, ``inv`` [N] int64, ``ids_stack`` [k, U] int64 and
+    ``mask_stack`` [k, U] bool (or None: all ones), contiguous, on one CUDA
+    device. Returns the [num_rows, D] table gradient in g's type, summed
+    in float32 and rounded once, the same bits on every run (no atomics).
+    The ids and inv are the forward's, which its indexing has bounded.
+    Its helper sorts run on the same stream and count in its time."""
+    if g.dtype not in _EXPAND_TAGS:
+        raise TypeError(f"table_gather_expand_bwd_cuda takes a float32 or "
+                        f"bfloat16 gradient, not {g.dtype}")
+    if inv.dtype != torch.int64 or ids_stack.dtype != torch.int64:
+        raise TypeError("table_gather_expand_bwd_cuda takes int64 inv and ids")
+    if mask_stack is not None and mask_stack.dtype != torch.bool:
+        raise TypeError("table_gather_expand_bwd_cuda takes a bool mask")
+    tensors = [t for t in (g, inv, ids_stack, mask_stack) if t is not None]
+    if not all(t.is_cuda and t.device == g.device for t in tensors):
+        raise ValueError("table_gather_expand_bwd_cuda: all inputs must be on "
+                         "one CUDA device")
+    if ids_stack.dim() != 2 or g.dim() != 2 or inv.shape != g.shape[:1]:
+        raise ValueError(f"shapes g {tuple(g.shape)}, inv {tuple(inv.shape)}, "
+                         f"ids {tuple(ids_stack.shape)} do not agree")
+    k, U = ids_stack.shape
+    N, C = g.shape
+    if k == 0 or C % k or (mask_stack is not None
+                           and mask_stack.shape != ids_stack.shape):
+        raise ValueError(f"g has {C} columns for {k} fields, or the mask's "
+                         f"shape is not ids' {tuple(ids_stack.shape)}")
+    if N * C >= 2 ** 31 or k * U >= 2 ** 31:
+        raise ValueError("table_gather_expand_bwd_cuda: too many rows")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("table_gather_expand_bwd_cuda takes contiguous "
+                         "tensors")
+    D = C // k
+    dtable = torch.empty(num_rows, D, dtype=g.dtype, device=g.device)
+    if N == 0 or U == 0:
+        return dtable.zero_()
+    inv_sorted, perm = torch.sort(inv, stable=True)
+    keys_sorted, eperm = torch.sort(ids_stack.reshape(-1), stable=True)
+    bounds = torch.empty(2 * U, dtype=torch.int32, device=g.device)
+    seg = torch.empty(U, C, dtype=torch.float32, device=g.device)
+    head = torch.empty(-(-N // _TILE), C, dtype=torch.float32,
+                       device=g.device)
+    lib = _expand_library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    entry = getattr(lib, f"table_gather_expand_bwd_{_EXPAND_TAGS[g.dtype]}")
+    with torch.cuda.device(g.device):
+        code = entry(
+            g.data_ptr(), inv_sorted.data_ptr(), perm.data_ptr(),
+            keys_sorted.data_ptr(), eperm.data_ptr(),
+            None if mask_stack is None else mask_stack.data_ptr(),
+            bounds.data_ptr(), seg.data_ptr(), head.data_ptr(),
+            dtable.data_ptr(), N, U, k, D, num_rows, _TILE, stream)
+    if code != 0:
+        raise RuntimeError(
+            "table_gather_expand backward kernel launch failed: "
+            + lib.table_gather_expand_error_string(code).decode())
+    table_gather_expand_bwd_cuda.launches += 1
+    return dtable
+
+
+table_gather_expand_bwd_cuda.launches = 0
+
+
+class TableGatherExpandFunction(torch.autograd.Function):
+    """``concat_i(table[ids_stack[i]] * mask_stack[i])[inv]`` (no mask:
+    all ones), [N, k*D]. The forward is torch indexing; the backward is
+    :func:`table_gather_expand_bwd_cuda` on CUDA tensors and
+    :func:`table_gather_expand_bwd_reference` on CPU tensors. Only the
+    table takes a gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids_stack, inv, mask_stack):
+        parts = [table[ids] if mask_stack is None
+                 else table[ids] * mask_stack[i][:, None].to(table.dtype)
+                 for i, ids in enumerate(ids_stack)]
+        ctx.num_rows = table.shape[0]
+        ctx.save_for_backward(ids_stack, inv, mask_stack)
+        return torch.cat(parts, dim=-1)[inv]
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        ids_stack, inv, mask_stack = ctx.saved_tensors
+        bwd = (table_gather_expand_bwd_cuda if g.is_cuda
+               else table_gather_expand_bwd_reference)
+        return (bwd(g.contiguous(), inv, ids_stack, mask_stack,
+                    ctx.num_rows), None, None, None)
+
+
+def table_gather_expand(table, ids, inv):
+    """Deduped lookup ``table[ids][inv]`` with the segment-sum backward
+    (``fuxictr_tpu.ops.embedding.table_gather_expand``)."""
+    return TableGatherExpandFunction.apply(table, ids[None], inv, None)
+
+
+def table_gather_expand_multi(table, ids_stack, inv, mask_stack):
+    """k fields of one fused table, deduped, expanded at once: [N, k*D]
+    (``fuxictr_tpu.ops.embedding.table_gather_expand_multi``)."""
+    return TableGatherExpandFunction.apply(table, ids_stack, inv, mask_stack)
 
 
 class EmbeddingLayout:
@@ -162,14 +314,13 @@ class FeatureEmbedding(nn.Module):
         return out
 
     def _grouped_expand(self, batch, inv):
-        """Deduped dicts: gather each field's unique rows, mask them, and
-        expand all of a table's fields through ``inv`` at once."""
+        """Deduped dicts: expand all of a table's fields through ``inv`` in
+        one :func:`table_gather_expand_multi`."""
         out = {}
         for tname, (fields, ids, masks) in self._groups(batch).items():
-            table = self._table(tname)
-            uniq = torch.cat([table[i] * m[:, None].to(table.dtype)
-                              for i, m in zip(ids, masks)], dim=-1)
-            emb = uniq[inv]                                    # [N, F*D]
+            emb = table_gather_expand_multi(
+                self._table(tname), torch.stack(ids), inv,
+                torch.stack(masks))                        # [N, F*D]
             dim = fields[0][1]["dim"]
             for i, (name, _) in enumerate(fields):
                 out[name] = emb[:, i * dim:(i + 1) * dim]
@@ -177,9 +328,12 @@ class FeatureEmbedding(nn.Module):
 
     def _lookup_fused(self, batch, plan, name, inv=None):
         ids = batch[name].long()
-        rows = self._table(plan["table"])[ids + plan["offset"]]
-        if inv is not None:
-            rows, ids = rows[inv], ids[inv]
+        table = self._table(plan["table"])
+        if inv is None:
+            rows = table[ids + plan["offset"]]
+        else:
+            rows = table_gather_expand(table, ids + plan["offset"], inv)
+            ids = ids[inv]
         pad = plan["padding_idx"]
         if pad >= 0:
             rows = rows * (ids != pad)[..., None].to(rows.dtype)

@@ -20,8 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fuxictr_tpu")
 SLICE_MODULES = [
     "fuxictr_tpu_torch", "fuxictr_tpu_torch.config",
     "fuxictr_tpu_torch.features", "fuxictr_tpu_torch.metrics",
-    "fuxictr_tpu_torch.data.longctr_loader",
-    "fuxictr_tpu_torch.ops.common", "fuxictr_tpu_torch.ops.embedding",
+    "fuxictr_tpu_torch.data.longctr_loader", "fuxictr_tpu_torch.data.loader",
+    "fuxictr_tpu_torch.ops.common", "fuxictr_tpu_torch.ops.cuda_build",
+    "fuxictr_tpu_torch.ops.embedding",
     "fuxictr_tpu_torch.ops.mlp", "fuxictr_tpu_torch.ops.target_attention",
     "fuxictr_tpu_torch.ops.attention", "fuxictr_tpu_torch.models",
     "fuxictr_tpu_torch.models.zoo", "fuxictr_tpu_torch.utils.convert",

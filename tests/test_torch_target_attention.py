@@ -120,11 +120,42 @@ class _CudaLike(torch.Tensor):
         return True
 
 
-def test_cuda_path_refuses_inputs_that_require_grad():
+def test_cuda_path_refuses_inputs_that_require_grad(monkeypatch):
+    """On the CUDA branch, inputs that require grad are refused to the
+    plain version: they go through ``TargetAttentionFunction`` to the
+    kernel's training forward (``with_stats``) and its backward wrapper,
+    and the gradients are what those return. (The kernels are stood in for
+    by their plain versions; the name dates from before the backward
+    kernel, when this path raised.)"""
+    calls = []
+    reference = ta.target_attention_reference
+
+    def forward(q, k, v, mask, scale, with_stats=False):
+        calls.append(("forward", with_stats))
+        out = reference(q, k, v, mask, scale)
+        return out, torch.zeros(q.shape[0], 2)
+
+    def backward(q, k, v, mask, out, dout, stats, scale):
+        calls.append(("backward", tuple(stats.shape)))
+        return ta.target_attention_backward_reference(q, k, v, mask, scale,
+                                                      dout)
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for CUDA inputs")
+
+    monkeypatch.setattr(ta, "target_attention_cuda", forward)
+    monkeypatch.setattr(ta, "target_attention_bwd_cuda", backward)
+    monkeypatch.setattr(ta, "target_attention_reference", plain)
     q, k, v, mask = (torch.from_numpy(a) for a in _inputs(2, 10, 8))
-    q = q.requires_grad_().as_subclass(_CudaLike)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ta.target_attention(q, k, v, mask, 1.0)
+    q, k = (t.requires_grad_() for t in (q, k))
+    out = ta.target_attention(q.as_subclass(_CudaLike), k, v, mask, 1.0)
+    dq, dk = torch.autograd.grad(out.sum(), (q, k))
+    assert calls == [("forward", True), ("backward", (2, 2))]
+    monkeypatch.undo()
+    ref_dq, ref_dk, _ = ta.target_attention_backward_reference(
+        q.detach(), k.detach(), v, mask, 1.0, torch.ones(2, 8))
+    torch.testing.assert_close(dq.as_subclass(torch.Tensor), ref_dq)
+    torch.testing.assert_close(dk.as_subclass(torch.Tensor), ref_dk)
 
 
 def test_cuda_path_launches_the_kernel_wrapper(monkeypatch):
