@@ -84,9 +84,11 @@ KERNEL_NAMES = {
                    torch.bfloat16: "table_gather_expand_bwd_bf16"},
 }
 SOURCES = ("target_attention", "table_gather_expand")
-# K3 backward against its plain version computed in f32 from the same g:
-# f32 sums of up to a third of a million rows in another order (1e-5 of
-# the largest row), and in bf16 one rounding of the output on top
+# K3 backward against its plain version computed in f64 from the same g:
+# the kernel's f32 sums of up to a third of a million rows (1e-5 of the
+# largest row), and in bf16 one rounding of the output on top. (In f32 the
+# plain version's index_add_ adds with atomics, in another order on each
+# run, and is itself that far off: the reference is taken in f64.)
 K3_TOL = {torch.float32: TOL, torch.bfloat16: 2 ** -8}
 
 FULL = dict(n_users=60_000, n_items=30_000, n_cates=200, min_len=300,
@@ -313,8 +315,8 @@ def expand_cases(shape, seed):
 
 
 def check_expand_bwd(dtype, cases):
-    """K3's backward against its plain version (computed in f32 from the
-    same g, rounded once) per case in ``dtype``, two launches bitwise
+    """K3's backward against its plain version (computed in f64 from the
+    same g) per case in ``dtype``, two launches bitwise
     equal; times kernel (its helper sorts included), plain version (in
     ``dtype``) and the autograd backward of ``table[ids][inv]``. Returns
     per-case rows and the max abs error."""
@@ -330,13 +332,13 @@ def check_expand_bwd(dtype, cases):
         mask_t = None if mask is None else torch.from_numpy(mask).cuda()
         out = table_gather_expand_bwd_cuda(grad, inv_t, ids_t, mask_t, V)
         again = table_gather_expand_bwd_cuda(grad, inv_t, ids_t, mask_t, V)
-        ref = table_gather_expand_bwd_reference(grad.float(), inv_t, ids_t,
+        ref = table_gather_expand_bwd_reference(grad.double(), inv_t, ids_t,
                                                 mask_t, V)
         torch.cuda.synchronize()
-        err = float((out.float() - ref).abs().max())
+        err = float((out.double() - ref).abs().max())
         atol = TOL * float(ref.abs().max())
         if not torch.equal(out, again) or out.dtype != dtype \
-                or not torch.allclose(out.float(), ref, rtol=K3_TOL[dtype],
+                or not torch.allclose(out.double(), ref, rtol=K3_TOL[dtype],
                                       atol=atol):
             raise AssertionError(
                 f"table_gather_expand_bwd {DTYPES[dtype]} {name}: max abs "
@@ -795,7 +797,8 @@ def profile_train_step(model, batch, top=14):
 def ptxas_report(log_path):
     """Registers, stack and spills of each kernel instance from a build's
     ``-Xptxas -v`` log, keyed by kernel and its template arguments, as
-    ``target_attention_fwd_kernel f32 bulk stats``."""
+    ``target_attention_fwd_kernel f32 bulk stats`` or
+    ``target_attention_bwd_kernel bf16 vec16 G8x1``."""
     report, key = OrderedDict(), None
     with open(log_path) as fd:
         for line in fd:
@@ -808,6 +811,11 @@ def ptxas_report(log_path):
                 if flags:
                     parts += [("bulk" if flags.group(1) == "1" else "plain")
                               + (" stats" if flags.group(2) == "1" else "")]
+                # K1's backward: access form, lanes per position, chunks a lane
+                group = re.search(r"Lb([01])ELi(\d+)ELi(\d+)E", line)
+                if group:
+                    parts += [("vec16" if group.group(1) == "1" else "plain")
+                              + f" G{group.group(2)}x{group.group(3)}"]
                 key = " ".join(parts)
                 report[key] = []
             elif key and ("registers" in line or "spill" in line):

@@ -66,9 +66,10 @@ class SIM(_LongCTRBase):
                  beta=1, net_dropout=0.0, batch_norm=False,
                  accumulation_steps=1, product_pooling=False, device=None,
                  seed=2019, **kwargs):
+        # accumulation_steps is taken and dropped, as the JAX SIM does: its
+        # RankModel reads the value only from kwargs, so SIM never accumulates
         super().__init__(feature_map, model_id=model_id, device=device,
-                         seed=seed, accumulation_steps=accumulation_steps,
-                         **kwargs)
+                         seed=seed, **kwargs)
         if gsu_type != "soft" or product_pooling:
             raise NotImplementedError(
                 "SIM is ported with gsu_type='soft' and no product pooling")

@@ -63,9 +63,22 @@
 // the gradient JAX's autodiff gives (the `where` on the mask gates it; a
 // fully masked row gets dv = dout / L and dq = dk = 0). Sums in f32, each
 // output rounded once. Bound: bytes again (k, v read, dk, dv written: four
-// L*D rows per row against ~9*L*D flops). One block per row, a warp per
-// position at a time, lanes along D; the statistics make it one pass over
-// the row whatever L, and dq is summed over the warps once.
+// L*D rows per row against ~9*L*D flops). The statistics make it one pass
+// over the row whatever L. Design, for bytes in flight at few registers:
+// - 16-byte loads of k and v and 16-byte stores of dk and dv, a group of
+//   lanes per position sized to the row's chunks (templated on the group
+//   size, so no register holds a column that is not there), several
+//   positions per warp, and their q.k and dout.v summed together over the
+//   group with xor shuffles;
+// - registers as the ring: each warp loads the next step's positions
+//   before it sums the current ones;
+// - one 128-thread block per row, eight blocks per SM: SIM's 1024 rows
+//   are one wave on 132 SMs;
+// - no atomics: dq is summed over a lane's positions, then the warp's
+//   groups, then the block's warps, each in a fixed order, so two launches
+//   give the same bits;
+// - a plain-access form (element loads and stores into the same chunks)
+//   for rows or bases that are not 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,13 +131,36 @@ struct Layout {
     }
 };
 
+// 16 bytes of T: `n` values, unpacked to f32 and packed back (rounded
+// once, to nearest even, in bf16); `load_part` and `store_part` move the
+// first `count` of them with plain element accesses (the rest read as 0).
 template <typename T> struct Vec;
 
 template <> struct Vec<float> {
     static constexpr int n = 4;
+    __device__ static void unpack(const uint4& u, float (&x)[4]) {
+        x[0] = __uint_as_float(u.x); x[1] = __uint_as_float(u.y);
+        x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
+    }
+    __device__ static uint4 pack(const float (&x)[4]) {
+        return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                          __float_as_uint(x[2]), __float_as_uint(x[3]));
+    }
+    __device__ static uint4 load_part(const float* p, int count) {
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            w[e] = e < count ? __float_as_uint(p[e]) : 0u;
+        return make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __device__ static void store_part(float* p, int count, const uint4& u) {
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (e < count) p[e] = __uint_as_float(w[e]);
+    }
     __device__ static void load(const float* p, float (&x)[4]) {
-        const float4 u = *reinterpret_cast<const float4*>(p);
-        x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+        unpack(*reinterpret_cast<const uint4*>(p), x);
     }
     __device__ static float from(float x) { return x; }
     __device__ static float to(float x) { return x; }
@@ -132,16 +168,51 @@ template <> struct Vec<float> {
 
 template <> struct Vec<__nv_bfloat16> {
     static constexpr int n = 8;
-    __device__ static void load(const __nv_bfloat16* p, float (&x)[8]) {
-        const uint4 u = *reinterpret_cast<const uint4*>(p);
+    // value 2i is the low half of word i
+    __device__ static void unpack(const uint4& u, float (&x)[8]) {
         const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-            const float2 f = __bfloat1622float2(h);
-            x[2 * i] = f.x;
-            x[2 * i + 1] = f.y;
+            x[2 * i] = __uint_as_float(w[i] << 16);
+            x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
         }
+    }
+    __device__ static uint32_t bits(float x) {
+        return __bfloat16_as_ushort(__float2bfloat16(x));
+    }
+    __device__ static uint4 pack(const float (&x)[8]) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            w[i] = bits(x[2 * i]) | (bits(x[2 * i + 1]) << 16);
+        return make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __device__ static uint4 load_part(const __nv_bfloat16* p, int count) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const uint32_t lo = 2 * i < count ? __bfloat16_as_ushort(p[2 * i])
+                                              : 0u;
+            const uint32_t hi = 2 * i + 1 < count
+                ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+            w[i] = lo | (hi << 16);
+        }
+        return make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __device__ static void store_part(__nv_bfloat16* p, int count,
+                                      const uint4& u) {
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (2 * i < count)
+                p[2 * i] = __ushort_as_bfloat16((unsigned short)w[i]);
+            if (2 * i + 1 < count)
+                p[2 * i + 1] = __ushort_as_bfloat16(
+                    (unsigned short)(w[i] >> 16));
+        }
+    }
+    __device__ static void load(const __nv_bfloat16* p, float (&x)[8]) {
+        unpack(*reinterpret_cast<const uint4*>(p), x);
     }
     __device__ static float from(__nv_bfloat16 x) {
         return __bfloat162float(x);
@@ -483,14 +554,12 @@ int launch_kernel(const T* q, const T* k, const T* v, const float* mask,
     return (int)cudaGetLastError();
 }
 
-// Bulk copies need 16-byte aligned rows and base pointers.
-template <typename T>
-bool bulk_ok(int D, const void* q, const void* k, const void* v) {
-    auto aligned = [](const void* p) {
-        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    };
-    return (D * sizeof(T)) % 16 == 0 && aligned(q) && aligned(k)
-        && aligned(v);
+// Rows of D values and every base pointer 16-byte aligned: what bulk
+// copies and 16-byte accesses need.
+template <typename T, typename... Ptrs>
+bool aligned16(int D, const Ptrs*... ptrs) {
+    return (D * sizeof(T)) % 16 == 0
+        && ((reinterpret_cast<uintptr_t>(ptrs) % 16 == 0) && ...);
 }
 
 template <typename T, bool kStats>
@@ -502,7 +571,7 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
     const T* vt = static_cast<const T*>(v);
     T* ot = static_cast<T*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return bulk_ok<T>(D, q, k, v)
+    return aligned16<T>(D, q, k, v)
         ? launch_kernel<T, true, kStats>(qt, kt, vt, mask, ot, stats, N, L,
                                          D, scale, s)
         : launch_kernel<T, false, kStats>(qt, kt, vt, mask, ot, stats, N, L,
@@ -510,23 +579,62 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 }
 
 // ---------------------------------------------------------------- backward
+//
+// Lanes along D in 16-byte chunks: a row of D columns is C = ceil(D / n)
+// chunks of n values (8 in bf16 and 16 in f32 at D = 64). A group of G
+// lanes takes one position, G the chunk count rounded up to a power of two
+// (at most 32; beyond D = 128 an f32 lane takes two chunks), so a warp
+// takes 32 / G positions at once (4 in bf16 and 2 in f32 at D = 64). A
+// lane whose chunk lies past D holds zeros (q, dout, k and v alike) and
+// adds zeros to its group's sums; it stores nothing.
 
-constexpr int kBwdWarps = kThreads / 32;
-constexpr int kPerLane = kThreads / 32;     // columns per lane at D = 256
+constexpr int kBwdThreads = 128;            // one row per block
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdUnroll = 2;     // positions per group per step (16-byte form)
+constexpr int kMaxD = 256;
 
-__device__ __forceinline__ float warp_sum(float x) {
+// Chunk c of a row: one 16-byte access where rows and bases are 16-byte
+// aligned (kVec16), else plain element accesses; past C, zeros and no
+// access.
+template <typename T, bool kVec16>
+__device__ __forceinline__ uint4 load_chunk(const T* row, int c, int C,
+                                            int D) {
+    constexpr int n = Vec<T>::n;
+    if (c >= C) return make_uint4(0u, 0u, 0u, 0u);
+    if (kVec16) return *reinterpret_cast<const uint4*>(row + c * n);
+    return Vec<T>::load_part(row + c * n, D - c * n);
+}
+
+template <typename T, bool kVec16>
+__device__ __forceinline__ void store_chunk(T* row, int c, int C, int D,
+                                            const uint4& u) {
+    constexpr int n = Vec<T>::n;
+    if (c >= C) return;
+    if (kVec16)
+        *reinterpret_cast<uint4*>(row + c * n) = u;
+    else
+        Vec<T>::store_part(row + c * n, D - c * n, u);
+}
+
+// the sum over the G lanes of a group (xor shuffles: a fixed order)
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+    for (int off = 1; off < G; off <<= 1)
         x += __shfl_xor_sync(0xffffffffu, x, off);
     return x;
 }
 
-// One block per row (rows blockIdx.x, +gridDim.x, ...). Lane `lane` of
-// every warp holds columns lane, lane + 32, ... of q, dout and its share
-// of dq; warp w takes positions w, w + kBwdWarps, ..., each with two
-// shuffle sums (q.k_l and dout.v_l). Plain loads: any element-aligned row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// One block per row (rows blockIdx.x, +gridDim.x, ...). Group `grp` of
+// warp w takes, in step t and slot u, position
+// t * kPerStep + (u * kBwdWarps + w) * kGroups + grp: a warp's access is
+// kGroups consecutive rows of k (or v, dk, dv), one contiguous span. The
+// next step's k, v and mask are loaded before this step's sums, so that
+// two steps' loads are in flight per warp. dq: each lane sums its chunks
+// over its positions in order, the groups of a warp are summed with xor
+// shuffles and the warps in order through shared memory.
+template <typename T, bool kVec16, int G, int kPerLane>
+__global__ void __launch_bounds__(kBwdThreads, kPerLane == 1 ? 8 : 4)
 target_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const float* __restrict__ mask,
@@ -536,61 +644,165 @@ target_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             T* __restrict__ dq, T* __restrict__ dk,
                             T* __restrict__ dv, int N, int L, int D,
                             float scale) {
-    __shared__ float red[kBwdWarps][kThreads];
+    constexpr int kVec = Vec<T>::n;
+    constexpr int kGroups = 32 / G;                // positions per warp
+    // the plain form's element accesses take the registers of a second slot
+    constexpr int kUnroll = kVec16 ? kBwdUnroll : 1;
+    constexpr int kPerStep = kBwdWarps * kGroups * kUnroll;
+    __shared__ float red[kBwdWarps][kMaxD];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
+    const int grp = lane / G;
+    const int sub = lane % G;
+    const int C = (D + kVec - 1) / kVec;
+    const int steps = (L + kPerStep - 1) / kPerStep;
+
     for (int row = blockIdx.x; row < N; row += gridDim.x) {
         const size_t r = row;
-        float qv[kPerLane], gv[kPerLane], dqa[kPerLane];
-        float delta = 0.0f;                       // dout . out
+        // q and dout stay packed; dq's share of this lane in f32
+        uint4 qc[kPerLane], gc[kPerLane];
+        float dqa[kPerLane][kVec];
+        float delta = 0.0f;                        // dout . out
 #pragma unroll
         for (int i = 0; i < kPerLane; ++i) {
-            const int c = lane + 32 * i;
-            const bool ok = c < D;
-            qv[i] = ok ? Vec<T>::from(q[r * D + c]) : 0.0f;
-            gv[i] = ok ? Vec<T>::from(dout[r * D + c]) : 0.0f;
-            if (ok) delta = fmaf(gv[i], Vec<T>::from(out[r * D + c]), delta);
-            dqa[i] = 0.0f;
+            const int c = sub + G * i;
+            qc[i] = load_chunk<T, kVec16>(q + r * D, c, C, D);
+            gc[i] = load_chunk<T, kVec16>(dout + r * D, c, C, D);
+            float gf[kVec], of[kVec];
+            Vec<T>::unpack(gc[i], gf);
+            Vec<T>::unpack(load_chunk<T, kVec16>(out + r * D, c, C, D), of);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) {
+                delta = fmaf(gf[e], of[e], delta);
+                dqa[i][e] = 0.0f;
+            }
         }
-        delta = warp_sum(delta);
+        delta = group_sum<G>(delta);
         const float m = stats[2 * r];
         const float l = stats[2 * r + 1];
-#pragma unroll 2
-        for (int j = warp; j < L; j += kBwdWarps) {
-            const size_t base = (r * L + j) * D;
-            float kv[kPerLane], vv[kPerLane];
-            float s = 0.0f, dp = 0.0f;
+
+        auto position = [&](int t, int u) {
+            return t * kPerStep + (u * kBwdWarps + warp) * kGroups + grp;
+        };
+        // step t's k, v chunks and mask values; past L, zeros and no loads
+        auto fetch = [&](int t, uint4 (&kb)[kUnroll][kPerLane],
+                         uint4 (&vb)[kUnroll][kPerLane],
+                         float (&mb)[kUnroll]) {
 #pragma unroll
-            for (int i = 0; i < kPerLane; ++i) {
-                const int c = lane + 32 * i;
-                const bool ok = c < D;
-                kv[i] = ok ? Vec<T>::from(k[base + c]) : 0.0f;
-                vv[i] = ok ? Vec<T>::from(v[base + c]) : 0.0f;
-                s = fmaf(qv[i], kv[i], s);
-                dp = fmaf(gv[i], vv[i], dp);
+            for (int u = 0; u < kUnroll; ++u) {
+                const int j = position(t, u);
+                const size_t base = (r * L + j) * D;
+#pragma unroll
+                for (int i = 0; i < kPerLane; ++i) {
+                    const int c = j < L ? sub + G * i : C;
+                    kb[u][i] = load_chunk<T, kVec16>(k + base, c, C, D);
+                    vb[u][i] = load_chunk<T, kVec16>(v + base, c, C, D);
+                }
+                mb[u] = j < L ? mask[r * L + j] : 0.0f;
             }
-            s = warp_sum(s);
-            dp = warp_sum(dp);
-            const bool valid = mask[r * L + j] > 0.0f;
-            const float p = __expf((valid ? s / scale : kMasked) - m) / l;
-            const float dsc = valid ? p * (dp - delta) / scale : 0.0f;
+        };
+        uint4 kc[kUnroll][kPerLane], vc[kUnroll][kPerLane];
+        float mc[kUnroll];
+        fetch(0, kc, vc, mc);
+
+        for (int t = 0; t < steps; ++t) {
+            uint4 kn[kUnroll][kPerLane], vn[kUnroll][kPerLane];
+            float mn[kUnroll];
+            fetch(t + 1, kn, vn, mn);
+
+            // q.k and dout.v of each slot, summed over the group together
+            float sc[kUnroll], dp[kUnroll];
 #pragma unroll
-            for (int i = 0; i < kPerLane; ++i) {
-                const int c = lane + 32 * i;
-                if (c < D) {
-                    dv[base + c] = Vec<T>::to(p * gv[i]);
-                    dk[base + c] = Vec<T>::to(dsc * qv[i]);
-                    dqa[i] = fmaf(dsc, kv[i], dqa[i]);
+            for (int u = 0; u < kUnroll; ++u) {
+                sc[u] = 0.0f;
+                dp[u] = 0.0f;
+#pragma unroll
+                for (int i = 0; i < kPerLane; ++i) {
+                    float qf[kVec], gf[kVec], kf[kVec], vf[kVec];
+                    Vec<T>::unpack(qc[i], qf);
+                    Vec<T>::unpack(gc[i], gf);
+                    Vec<T>::unpack(kc[u][i], kf);
+                    Vec<T>::unpack(vc[u][i], vf);
+#pragma unroll
+                    for (int e = 0; e < kVec; ++e) {
+                        sc[u] = fmaf(qf[e], kf[e], sc[u]);
+                        dp[u] = fmaf(gf[e], vf[e], dp[u]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int off = 1; off < G; off <<= 1) {
+#pragma unroll
+                for (int u = 0; u < kUnroll; ++u) {
+                    sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], off);
+                    dp[u] += __shfl_xor_sync(0xffffffffu, dp[u], off);
+                }
+            }
+
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int j = position(t, u);
+                if (j >= L) continue;
+                const bool valid = mc[u] > 0.0f;
+                const float p = __expf((valid ? sc[u] / scale : kMasked) - m)
+                    / l;
+                const float dsc = valid ? p * (dp[u] - delta) / scale : 0.0f;
+                const size_t base = (r * L + j) * D;
+#pragma unroll
+                for (int i = 0; i < kPerLane; ++i) {
+                    const int c = sub + G * i;
+                    float qf[kVec], gf[kVec], kf[kVec];
+                    Vec<T>::unpack(qc[i], qf);
+                    Vec<T>::unpack(gc[i], gf);
+                    Vec<T>::unpack(kc[u][i], kf);
+                    float dvf[kVec], dkf[kVec];
+#pragma unroll
+                    for (int e = 0; e < kVec; ++e) {
+                        dvf[e] = p * gf[e];
+                        dkf[e] = dsc * qf[e];
+                        dqa[i][e] = fmaf(dsc, kf[e], dqa[i][e]);
+                    }
+                    store_chunk<T, kVec16>(dv + base, c, C, D,
+                                           Vec<T>::pack(dvf));
+                    store_chunk<T, kVec16>(dk + base, c, C, D,
+                                           Vec<T>::pack(dkf));
+                }
+            }
+
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                mc[u] = mn[u];
+#pragma unroll
+                for (int i = 0; i < kPerLane; ++i) {
+                    kc[u][i] = kn[u][i];
+                    vc[u][i] = vn[u][i];
                 }
             }
         }
+
+        // dq: the warp's groups with shuffles, then the warps in order
 #pragma unroll
-        for (int i = 0; i < kPerLane; ++i) {
-            const int c = lane + 32 * i;
-            if (c < D) red[warp][c] = dqa[i];
+        for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i) {
+#pragma unroll
+                for (int e = 0; e < kVec; ++e)
+                    dqa[i][e] += __shfl_xor_sync(0xffffffffu, dqa[i][e], off);
+            }
+        }
+        if (grp == 0) {
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i) {
+                const int c = sub + G * i;
+                if (c < C) {
+#pragma unroll
+                    for (int e = 0; e < kVec; ++e)
+                        red[warp][c * kVec + e] = dqa[i][e];
+                }
+            }
         }
         __syncthreads();
-        for (int c = threadIdx.x; c < D; c += kThreads) {
+        for (int c = threadIdx.x; c < D; c += kBwdThreads) {
             float total = 0.0f;
             for (int w = 0; w < kBwdWarps; ++w) total += red[w][c];
             dq[r * D + c] = Vec<T>::to(total);
@@ -600,12 +812,36 @@ target_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
+using BwdKernel = void (*)(const T*, const T*, const T*, const float*,
+                           const T*, const T*, const float*, T*, T*, T*, int,
+                           int, int, float);
+
+// The instance for D: lanes per position the chunk count rounded up to a
+// power of two, at most 32 (two chunks a lane beyond that, f32 only).
+template <typename T, bool kVec16>
+BwdKernel<T> bwd_kernel_for(int D) {
+    const int C = (D + Vec<T>::n - 1) / Vec<T>::n;
+    if constexpr (sizeof(T) == 4) {
+        if (C > 32) return target_attention_bwd_kernel<T, kVec16, 32, 2>;
+    }
+    return C > 16 ? target_attention_bwd_kernel<T, kVec16, 32, 1>
+        : C > 8 ? target_attention_bwd_kernel<T, kVec16, 16, 1>
+        : C > 4 ? target_attention_bwd_kernel<T, kVec16, 8, 1>
+        : C > 2 ? target_attention_bwd_kernel<T, kVec16, 4, 1>
+        : C > 1 ? target_attention_bwd_kernel<T, kVec16, 2, 1>
+        : target_attention_bwd_kernel<T, kVec16, 1, 1>;
+}
+
+template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v,
                const float* mask, const void* out, const void* dout,
                const float* stats, void* dq, void* dk, void* dv, int N,
                int L, int D, float scale, void* stream) {
-    target_attention_bwd_kernel<T><<<std::min(N, 1 << 16), kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+    const BwdKernel<T> kernel =
+        aligned16<T>(D, q, k, v, out, dout, dq, dk, dv)
+        ? bwd_kernel_for<T, true>(D) : bwd_kernel_for<T, false>(D);
+    kernel<<<std::min(N, 1 << 16), kBwdThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), mask, static_cast<const T*>(out),
         static_cast<const T*>(dout), stats, static_cast<T*>(dq),

@@ -162,9 +162,32 @@ def _check_backward(q, k, v, mask, seed=1):
     (1024, 100, 64, (5,)), (300, 333, 24, (0, 7)), (7, 1, 8, (3,)),
     (64, 2048, 64, (9,)),        # a long row: several forward tiles
     (33, 7, 6, (2,)), (9, 5, 5, ()),
+] + [
+    # every lane-group form: D = 8 ... 256 takes 1 to 32 lanes a position
+    # in bf16, and in f32 2 to 32 lanes of one 16-byte chunk or 32 lanes of
+    # two (D = 256); D = 24 leaves idle lanes in each group (3 chunks on 4
+    # lanes in bf16, 6 on 8 in f32); rows of 1, 7 and 100 positions
+    (37, L, D, (2,)) for D in (8, 24, 32, 64, 128, 256) for L in (1, 7, 100)
 ])
 def test_backward_kernel_matches_plain(cuda, dtype, N, L, D, masked_rows):
     _check_backward(*_on_card(_inputs(N, L, D, masked_rows), cuda, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_is_bitwise_repeatable(cuda, dtype):
+    """No atomics: dq is summed in one fixed order, so two launches on the
+    same inputs give the same bits."""
+    q, k, v, mask = _on_card(_inputs(1024, 100, 64, (5,)), cuda, dtype)
+    scale = 8.0
+    dout = torch.randn(q.shape, device=cuda).to(dtype)
+    out, stats = ta.target_attention_cuda(q, k, v, mask, scale,
+                                          with_stats=True)
+    first = ta.target_attention_bwd_cuda(q, k, v, mask, out, dout, stats,
+                                         scale)
+    second = ta.target_attention_bwd_cuda(q, k, v, mask, out, dout, stats,
+                                          scale)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -213,11 +236,12 @@ def _expand_case(N, U, V, k, used, pad_share, seed=0):
 ])
 def test_expand_backward_kernel_matches_plain(cuda, dtype, N, U, V, k, used,
                                               pad_share, D):
-    """Against the plain backward computed in f32 from the same g and
-    rounded once. f32: 1e-5 relative, plus 1e-5 of the largest row sum
-    absolute (sums of up to a third of a million rows in another order);
-    bf16: one rounding (2**-8 relative) on top. Two launches give the same
-    bits."""
+    """Against the plain backward computed in f64 from the same g (in f32
+    its index_add_ adds with atomics, in another order on each run, and is
+    itself off by about the tolerance at a third of a million rows). f32:
+    1e-5 relative, plus 1e-5 of the largest row sum absolute (the kernel's
+    f32 sums of up to a third of a million rows); bf16: one rounding
+    (2**-8 relative) on top. Two launches give the same bits."""
     inv, ids, mask = _expand_case(N, U, V, k, used, pad_share)
     g = torch.Generator(device=cuda).manual_seed(2)
     grad = torch.randn(N, k * D, generator=g, device=cuda).to(dtype)
@@ -230,10 +254,10 @@ def test_expand_backward_kernel_matches_plain(cuda, dtype, N, U, V, k, used,
     assert emb.table_gather_expand_bwd_cuda.launches == before + 2
     assert out.dtype == dtype and out.shape == (V, D)
     assert torch.equal(out, again)
-    ref = emb.table_gather_expand_bwd_reference(grad.float(), inv, ids, mask,
-                                                V)
+    ref = emb.table_gather_expand_bwd_reference(grad.double(), inv, ids,
+                                                mask, V)
     rtol = 1e-5 if dtype == torch.float32 else 2 ** -8
-    torch.testing.assert_close(out.float(), ref, rtol=rtol,
+    torch.testing.assert_close(out.double(), ref, rtol=rtol,
                                atol=1e-5 * float(ref.abs().max()))
 
 

@@ -595,12 +595,7 @@ def test_rank_data_loader_refuses_what_is_not_ported():
                        data_loader=LongCTRDataLoader, device_cache=True)
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(optimizer="sgd"), "optimizer"),
-    (dict(accumulation_steps=2), "accumulation_steps"),
-    (dict(lazy_adam=True), "lazy_adam"),
-    (dict(periodic_ckpt=1), "periodic_ckpt")])
-def test_training_features_not_ported_raise(override, match):
+def _small_sim_and_batch(**override):
     _, tfm = _feature_maps(_params())
     model = get_model("SIM")(tfm, device="cpu", embedding_dim=4,
                              attention_dim=4, dnn_hidden_units=[8],
@@ -608,6 +603,50 @@ def test_training_features_not_ported_raise(override, match):
     batch = next(iter(LongCTRDataLoader(
         tfm, os.path.join(DATA, "valid.parquet"), batch_size=8, max_len=12,
         **LOADER_KW)))
+    return model, batch
+
+
+@pytest.mark.parametrize("override,match", [
+    (dict(optimizer="sgd"), "optimizer"),
+    (dict(lazy_adam=True), "lazy_adam"),
+    (dict(periodic_ckpt=1), "periodic_ckpt")])
+def test_training_features_not_ported_raise(override, match):
+    model, batch = _small_sim_and_batch(**override)
     with pytest.raises(NotImplementedError, match=match):
         model.train_step(batch)
     assert float(np.asarray(batch[SAMPLE_MASK_KEY]).sum()) == 8
+
+
+def test_sim_ignores_accumulation_steps_as_jax_does():
+    """SIM takes ``accumulation_steps`` by name and drops it, as the JAX
+    SIM does (its RankModel reads the value only from kwargs): five train
+    steps with ``accumulation_steps=2`` match the JAX SIM's within 1e-5
+    (losses relative, parameters absolute), and are bitwise the port's own
+    run with ``accumulation_steps=1``."""
+    jax_model, jfm, port, tfm, params, _ = _sim_models(
+        None, accumulation_steps=2)
+    assert "accumulation_steps" not in port.kwargs
+    jb, tb = _train_batches(jfm, tfm, params)
+    ref_losses, ref_params = _jax_steps(jax_model, jb, 5)
+    losses = [port.train_step(b) for b in tb[:5]]
+    np.testing.assert_allclose([float(x) for x in losses], ref_losses,
+                               rtol=TOL)
+    state = port.state_dict()
+    for name, val in ref_params.items():
+        np.testing.assert_allclose(state[name].numpy(), val.numpy(),
+                                   rtol=0, atol=TOL, err_msg=name)
+    once = _sim_models(None, accumulation_steps=1)[2]
+    once_losses = [once.train_step(b) for b in tb[:5]]
+    assert all(torch.equal(a, b) for a, b in zip(losses, once_losses))
+    for name, val in once.state_dict().items():
+        assert torch.equal(state[name], val), name
+
+
+def test_accumulation_steps_in_kwargs_still_raises():
+    """A model whose RankModel receives ``accumulation_steps > 1`` (as the
+    JAX package's DNN does through ``**kwargs``) still refuses to train:
+    optax ``MultiSteps`` is not ported."""
+    model, batch = _small_sim_and_batch()
+    model.kwargs["accumulation_steps"] = 2
+    with pytest.raises(NotImplementedError, match="accumulation_steps"):
+        model.train_step(batch)
