@@ -33,13 +33,27 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    evaluation call it, a step repeated from the same state gives the same
    bits, and a step's gradients and parameters agree with the same step
    through the plain versions; train step ms (CUDA events) and ``fit``
-   examples/s.
+   examples/s;
+7. train DCNv2 at ``bench.py``'s shape (26 categorical fields of vocab
+   100,000 in one 2,600,000 x 16 table, 13 numeric, batch 8192, parallel
+   towers [1024, 512, 256], 4 cross layers) through ``RankModel.multi_step``
+   on ``make_synthetic_batch(seed=0)`` stacked K = 10 and placed once, as
+   ``bench.py`` drives it, in float32 and with ``compute_dtype="bfloat16"``:
+   examples/s and event-timed ms per step over 5 calls after a warm-up;
+   TF32 is off; the path launched no K1 or K3 kernel; a K-step call
+   repeated from one state gives the same bits; in float32 one step's
+   gradients on the card agree with the same step on the CPU;
+8. run the port's ``run_expid`` for ``DeepFM_test``, ``DCNv2_test`` and
+   ``DCNv2_mix_test`` (``configs/tiny``, on ``data/tiny_parquet``) on the
+   card and on the CPU, checkpoints and logs in a temporary directory, and
+   hold the card's validation and test AUC and logloss against the CPU's.
 
 Prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a GPU or outside a checkout. ``--profile`` adds a
 ``torch.profiler`` breakdown by kernel of one SIM forward and of one SIM
-train step, per type.
+train step, per type, and by aten op of one DCNv2 step (forward and
+backward, then ``ClippedAdam``), per type.
 """
 
 import concurrent.futures
@@ -794,6 +808,293 @@ def profile_train_step(model, batch, top=14):
                         for e in events[:top]]}
 
 
+# DCNv2 at bench.py's shape (bench.py:30-46): 26 categorical fields of
+# vocab 100,000 (one fused 2,600,000 x 16 table) and 13 numeric, batch
+# 8192, parallel structure, towers [1024, 512, 256], 4 cross layers; the
+# batch from make_synthetic_batch(seed=0) stacked K = 10 and placed once
+DCNV2 = dict(num_categorical=26, num_numeric=13, vocab_size=100_000,
+             embedding_dim=16, batch=8192, steps_per_call=10, timed_calls=5,
+             hidden_units=[1024, 512, 256], num_cross_layers=4)
+# One f32 step's gradients on the card against the same step on the CPU
+# (same parameters and batch, the same side of every ReLU), each tensor's
+# max abs difference over its largest entry: the devices sum in other
+# orders, and a weight gradient sums 8192 products, whose f32 rounding in
+# another order is ~sqrt(8192) * 2**-24 = 5e-6 of the sum. Measured on an
+# H100, on the freshly built model with the ReLU sides pinned: 8.8e-7
+CARD_CPU_GRAD_TOL = 5e-5
+CARD_CPU_LOSS_TOL = 1e-5         # relative: f32 sums in another order
+
+
+def dcnv2_model(device, compute_dtype, model_root, seed=2019):
+    from fuxictr_tpu_torch.models import get_model
+    from fuxictr_tpu_torch.utils.synthetic import make_synthetic_feature_map
+    fm = make_synthetic_feature_map(
+        num_categorical=DCNV2["num_categorical"],
+        num_numeric=DCNV2["num_numeric"], vocab_size=DCNV2["vocab_size"],
+        embedding_dim=DCNV2["embedding_dim"])
+    model = get_model("DCNv2")(
+        fm, model_id="DCNv2_bench", embedding_dim=DCNV2["embedding_dim"],
+        model_structure="parallel",
+        stacked_dnn_hidden_units=DCNV2["hidden_units"],
+        parallel_dnn_hidden_units=DCNV2["hidden_units"],
+        num_cross_layers=DCNV2["num_cross_layers"],
+        compute_dtype=compute_dtype, device=device, seed=seed,
+        model_root=model_root)
+    return model, fm
+
+
+def train_dcnv2(device, compute_dtype=None, profile=False):
+    """DCNv2 at bench.py's shape through ``RankModel.multi_step`` on the
+    card: one warm-up call, then ``timed_calls`` calls of K steps, the loss
+    read at the end as the barrier; asserts that TF32 is off, that the path
+    launched no K1 or K3 kernel, that a K-step call repeated from one state
+    gives the same bits, and (f32) that one step's gradients agree with the
+    same step on the CPU. Returns the report."""
+    from fuxictr_tpu_torch.ops import embedding as emb
+    from fuxictr_tpu_torch.ops import target_attention as ta
+    from fuxictr_tpu_torch.utils.synthetic import make_synthetic_batch
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("f32 products must not run in TF32: the JAX "
+                             "reference computes them in f32")
+    dtype = torch.bfloat16 if compute_dtype else torch.float32
+    ckpt_dir = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    model, fm = dcnv2_model(device, compute_dtype, ckpt_dir.name)
+    batch = make_synthetic_batch(fm, batch_size=DCNV2["batch"], seed=0)
+    k = DCNV2["steps_per_call"]
+    stacked = model._place_batch({key: np.stack([v] * k)
+                                  for key, v in batch.items()})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    one = {key: v[0] for key, v in stacked.items()}
+    checks = (card_vs_cpu_step(model, one, ckpt_dir.name)
+              if compute_dtype is None else {})
+
+    # the main path: bench.py's loop
+    ta.target_attention_cuda.launches = 0
+    ta.target_attention_bwd_cuda.launches = 0
+    emb.table_gather_expand_bwd_cuda.launches = 0
+    warm = float(model.multi_step(stacked))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    for _ in range(DCNV2["timed_calls"]):
+        loss = model.multi_step(stacked)
+    end.record()
+    loss = float(loss)
+    t2 = time.perf_counter()
+    launches = {"target_attention": ta.target_attention_cuda.launches,
+                "target_attention_bwd": ta.target_attention_bwd_cuda.launches,
+                "table_gather_expand_bwd":
+                    emb.table_gather_expand_bwd_cuda.launches}
+    if any(launches.values()):
+        raise AssertionError(f"DCNv2 launched {launches}: its path has no "
+                             f"K1 or K3 kernel")
+    steps = DCNV2["timed_calls"] * k
+    if not (np.isfinite(warm) and np.isfinite(loss)):
+        raise AssertionError(f"DCNv2 losses {warm}, {loss}")
+
+    # a K-step call twice from one state: the same bits
+    snap = snapshot(model)
+    loss_a = model.multi_step(stacked)
+    params_a = [p.detach().clone() for p in model.parameters()]
+    restore(model, snap)
+    loss_b = model.multi_step(stacked)
+    if not (torch.equal(loss_a, loss_b) and all(
+            torch.equal(a, b) for a, b in zip(params_a, model.parameters()))):
+        raise AssertionError(f"DCNv2 in {DTYPES[dtype]}: two {k}-step calls "
+                             f"from one state differ")
+    restore(model, snap)
+
+    report = OrderedDict(
+        compute_dtype=compute_dtype or "float32", batch_size=DCNV2["batch"],
+        steps_per_call=k, timed_steps=steps,
+        table_rows=model.embedding.table_d16.shape[0],
+        build_and_place_s=build_s, loss_after_warmup=warm, loss=loss,
+        examples_per_s=steps * DCNV2["batch"] / (t2 - t1),
+        train_step_ms=start.elapsed_time(end) / steps,
+        launches=launches, bitwise_repeatable=True,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    report.update(checks)
+    if compute_dtype is not None:
+        table = model.embedding.table_d16.detach()
+        report["table_cast_ms"] = time_ms(
+            lambda: table.to(torch.bfloat16), reps=10, warmup=2)
+        report["table_cast_bound_ms"] = (table.numel() * 6
+                                         / HBM_BYTES_PER_S * 1e3)
+    if profile:
+        report["profile"] = profile_dcnv2_step(model, one)
+    ckpt_dir.cleanup()
+    return report
+
+
+def _tower_hooks(model, pin=None):
+    """Forward hooks on the parallel tower's hidden Dense layers (the ReLU
+    inputs) that keep their outputs; with ``pin`` (the same outputs from
+    the other device), an output on the other side of zero from its
+    ``pin`` value takes that value, so that both devices take the same
+    side of every ReLU. Returns the kept outputs, the number of values
+    moved, and the hook handles."""
+    kept, moved, tower = [], [0], model.parallel_dnn
+
+    def hook(i):
+        def keep(mod, args, out):
+            if pin is not None:
+                ref = pin[i].to(out.device)
+                flip = (ref > 0) != (out > 0)
+                moved[0] += int(flip.sum())
+                out = out + ((ref - out) * flip).detach()
+            kept.append(out.detach())
+            return out
+        return keep
+    handles = [getattr(tower, f"Dense_{i}").register_forward_hook(hook(i))
+               for i in range(tower._n_hidden)]
+    return kept, moved, handles
+
+
+def card_vs_cpu_step(model, batch, model_root):
+    """One f32 step's loss and gradients on the card and on the CPU, from
+    the card model's parameters and the same batch. A ReLU input within
+    f32 rounding of zero may fall on one side on the card and on the
+    other on the CPU, and then one example's term of a weight gradient is
+    in one sum and not the other (3 such inputs of 14.7 million moved the
+    table's gradient by 0.8% of its largest entry): the CPU step takes
+    the card's side of each ReLU (:func:`_tower_hooks`), and the count of
+    inputs moved is reported."""
+    cpu_model, _ = dcnv2_model(torch.device("cpu"), None, model_root)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    kept, _, hooks = _tower_hooks(model)
+    loss_g, grads_g = model.loss_and_grads(batch)
+    _, moved, cpu_hooks = _tower_hooks(cpu_model, pin=kept)
+    loss_c, grads_c = cpu_model.loss_and_grads(
+        {k: v.cpu() for k, v in batch.items()})
+    for h in hooks + cpu_hooks:
+        h.remove()
+    names = [n for n, _ in model.named_parameters()]
+    errs = {n: float((a.cpu() - b).abs().max()
+                     / b.abs().max().clamp(min=1e-30))
+            for n, a, b in zip(names, grads_g, grads_c)}
+    worst = max(errs.values())
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    if not (worst <= CARD_CPU_GRAD_TOL and loss_err <= CARD_CPU_LOSS_TOL):
+        raise AssertionError(
+            f"DCNv2 f32 step, card vs CPU: gradients differ by up to {worst} "
+            f"of the largest entry (limit {CARD_CPU_GRAD_TOL}; {errs}), "
+            f"loss by {loss_err} (limit {CARD_CPU_LOSS_TOL})")
+    return {"card_vs_cpu_grad_max_rel": worst,
+            "card_vs_cpu_grad_rel": errs,
+            "card_vs_cpu_loss_rel": loss_err,
+            "card_vs_cpu_relu_inputs_moved": moved[0]}
+
+
+def _device_ops(prof):
+    """Self device time (ms) and calls by aten op, largest first: each
+    kernel's time under the op that launched it; and the busy time, the
+    kernels' time summed."""
+    averages = prof.key_averages()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in averages
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.device_time_total for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return sorted(ops, key=lambda o: -o[1]), busy
+
+
+def profile_dcnv2_step(model, batch, top=12):
+    """Device time of one DCNv2 train step (torch.profiler): the forward
+    and backward, then ``ClippedAdam``'s step, each by aten op (the
+    kernels' self time under the op that launched them), with each op's
+    share of the step's busy time, and the wall time of the profiled
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    model.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as fwd_bwd:
+        loss, grads = model.loss_and_grads(batch)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as adam:
+        model._optimizer.step(grads)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (ops, busy_fb), (adam_ops, busy_adam) = (_device_ops(fwd_bwd),
+                                             _device_ops(adam))
+    total = busy_fb + busy_adam
+    if not total > 0:
+        raise AssertionError("the profiler saw no device time")
+
+    def share(*names):
+        ms = sum(o[1] for o in ops if o[0] in names)
+        return {"ms": ms, "share": ms / total}
+
+    return {
+        "wall_ms": wall * 1e3, "device_ms": total,
+        "forward_backward_ms": busy_fb, "clipped_adam_ms": busy_adam,
+        "clipped_adam_share": busy_adam / total,
+        "gather (aten::index)": share("aten::index"),
+        "scatter backward (aten::index_put_)": share(
+            "aten::index_put_", "aten::_index_put_impl_"),
+        "casts (aten::_to_copy, aten::copy_)": share("aten::_to_copy",
+                                                     "aten::copy_"),
+        "gemms (aten::mm, addmm, bmm)": share("aten::mm", "aten::addmm",
+                                              "aten::bmm"),
+        "top_ops": [[name, ms, ms / total, n] for name, ms, n in sorted(
+            ops + [("adam: " + o[0],) + o[1:] for o in adam_ops],
+            key=lambda o: -o[1])[:top]]}
+
+
+# Phase 8: run_expid on configs/tiny over data/tiny_parquet
+EXPIDS = ("DeepFM_test", "DCNv2_test", "DCNv2_mix_test")
+# validation and test AUC and logloss, card vs CPU: one Adam step from the
+# same init on 100 rows, f32 sums in another order
+EXPID_TOL = 1e-5
+
+
+def run_expids(root):
+    """The port's ``run_expid`` for each tiny expid on the card and on the
+    CPU, checkpoints and logs in a temporary directory; returns the card's
+    results and their largest difference from the CPU's."""
+    from fuxictr_tpu_torch.config import load_config
+    from fuxictr_tpu_torch.experiment import run_expid
+    data_root = os.path.join(root, "data")
+    out = OrderedDict()
+    with tempfile.TemporaryDirectory() as tmp:
+        for expid in EXPIDS:
+            params = load_config(os.path.join(root, "configs", "tiny"),
+                                 expid)
+            ds = params["dataset_id"]
+            params.update(data_root=data_root + os.sep, **{
+                f"{s}_data": os.path.join(data_root, ds, f"{s}.parquet")
+                for s in ("train", "valid", "test")})
+            runs = {}
+            for device in ("cuda", "cpu"):
+                result = run_expid(None, expid, params=dict(
+                    params, model_root=os.path.join(tmp, device)),
+                    device=device)
+                if result["model"].device.type != device:
+                    raise AssertionError(f"{expid} ran on "
+                                         f"{result['model'].device}")
+                runs[device] = {s: dict(result[s]) for s in ("valid",
+                                                             "test")}
+            diff = max(abs(runs["cuda"][s][m] - runs["cpu"][s][m])
+                       for s in ("valid", "test") for m in ("AUC",
+                                                            "logloss"))
+            if not (diff <= EXPID_TOL and all(
+                    np.isfinite(v) for s in runs["cuda"].values()
+                    for v in s.values())):
+                raise AssertionError(f"run_expid {expid}: card {runs['cuda']}"
+                                     f" vs CPU {runs['cpu']} (limit "
+                                     f"{EXPID_TOL})")
+            out[expid] = dict(runs["cuda"], max_abs_diff_vs_cpu=diff)
+    return out
+
+
 def ptxas_report(log_path):
     """Registers, stack and spills of each kernel instance from a build's
     ``-Xptxas -v`` log, keyed by kernel and its template arguments, as
@@ -908,6 +1209,12 @@ def main(argv):
             next(r for r in rows if r["case"] == "sim_item_id"),
             "fuxictr_tpu_torch/ops/csrc/table_gather_expand.cu",
             "fuxictr_tpu/ops/embedding.py:214-218,253-264"))
+
+    for compute_dtype in (None, "bfloat16"):
+        print(json.dumps({"dcnv2_training": train_dcnv2(
+            device, compute_dtype, profile=profile)}), flush=True)
+    print(json.dumps({"run_expid": run_expids(
+        os.path.dirname(os.path.abspath(__file__)))}), flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
-"""Config loading, the two-file YAML layout of ``fuxictr_tpu.config``, and
-the early-stop ``Monitor``.
+"""Config loading, the two-file YAML layout of ``fuxictr_tpu.config``, the
+run's logger and its printers, and the early-stop ``Monitor``.
 
 ``model_config.yaml`` holds a ``Base`` section merged under each expid
 section (the expid wins); ``dataset_config.yaml`` is keyed by dataset_id.
@@ -8,7 +8,10 @@ PyYAML.
 """
 
 import glob
+import json
+import logging
 import os
+from collections import OrderedDict
 
 
 def _read_yaml(path):
@@ -64,6 +67,43 @@ def load_dataset_config(config_dir, dataset_id):
             params.update(cfg[dataset_id])
             return params
     raise RuntimeError(f"dataset_id={dataset_id} is not found in config.")
+
+
+def set_logger(params, stream=True):
+    """Log the run at INFO to ``<model_root>/<dataset_id>/<model_id>.log``
+    (rewritten) and, with ``stream``, to stderr, replacing the root
+    logger's handlers; the first line names the port and its version."""
+    log_dir = os.path.join(params.get("model_root", "./checkpoints"),
+                           params["dataset_id"])
+    os.makedirs(log_dir, exist_ok=True)
+    log_file = os.path.join(log_dir, params.get("model_id", "") + ".log")
+    for handler in logging.root.handlers[:]:
+        logging.root.removeHandler(handler)
+        if isinstance(handler, logging.FileHandler):
+            handler.close()                 # an earlier run's log file
+    handlers = [logging.FileHandler(log_file, mode="w")]
+    if stream:
+        handlers.append(logging.StreamHandler())
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s P%(process)d %(levelname)s %(message)s",
+        handlers=handlers)
+    import fuxictr_tpu_torch
+    logging.info("fuxictr_tpu_torch version: %s",
+                 fuxictr_tpu_torch.__version__)
+
+
+def print_to_json(data, sort_keys=True):
+    """Every value as its ``str``, as indented JSON (keys sorted)."""
+    new_data = {k: str(v) for k, v in data.items()}
+    if sort_keys:
+        new_data = OrderedDict(sorted(new_data.items(), key=lambda x: x[0]))
+    return json.dumps(new_data, indent=4)
+
+
+def print_to_list(data):
+    """``"key: value - key: value"`` with six decimals."""
+    return " - ".join(f"{k}: {v:.6f}" for k, v in data.items())
 
 
 class Monitor:

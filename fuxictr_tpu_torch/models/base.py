@@ -359,6 +359,15 @@ class RankModel(nn.Module):
         self._optimizer.step(grads)
         return loss
 
+    def multi_step(self, batches):
+        """K train steps, in order, over a flat batch dict stacked to ``[K,
+        B, ...]`` (numpy, or tensors already on the device), as the JAX
+        package's ``_make_multi_step`` scans them; returns the mean of the
+        K losses as a 0-d float32 tensor on the device."""
+        losses = [self.train_step({k: v[i] for k, v in batches.items()})
+                  for i in range(len(batches[SAMPLE_MASK_KEY]))]
+        return torch.stack(losses).mean()
+
     def fit(self, data_generator, epochs=1, validation_data=None,
             max_gradient_norm=10.0, **kwargs):
         """Train for ``epochs`` over ``data_generator`` (re-iterated each

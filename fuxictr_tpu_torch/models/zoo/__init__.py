@@ -1,3 +1,3 @@
 """Model zoo: importing it registers every ported model."""
 
-from fuxictr_tpu_torch.models.zoo import longctr  # noqa: F401
+from fuxictr_tpu_torch.models.zoo import longctr, ranking  # noqa: F401

@@ -57,7 +57,10 @@ class SIM(_LongCTRBase):
     The auxiliary GSU head feeds only the training loss,
     ``alpha * GSU + beta * ESU`` (:meth:`add_loss`). ``net_dropout`` drops
     in both MLPs; ``attention_dropout`` in both attentions (on the CPU
-    only: the kernel has none)."""
+    only: the kernel has none). ``_longctr`` tells ``run_expid`` to feed it
+    through ``LongCTRDataLoader``."""
+
+    _longctr = True
 
     def __init__(self, feature_map, model_id="SIM", embedding_dim=10,
                  dnn_hidden_units=(512, 128, 64), dnn_activations="relu",

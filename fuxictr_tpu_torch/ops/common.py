@@ -19,8 +19,15 @@ _TRUNC_STD = 0.87962566103423978
 
 def xavier_normal_(tensor, generator):
     """In place: ``jax.nn.initializers.glorot_normal`` (fan-average variance
-    scaling, truncated normal) for a 2-D ``[out, in]`` weight."""
-    fan_out, fan_in = tensor.shape
+    scaling, truncated normal) for a 2-D ``[out, in]`` weight, or for a
+    parameter of three or more dims kept in flax's layout ``[..., in,
+    out]``, whose fans are multiplied by the leading dims (flax's receptive
+    field: ``[E, D, R]`` has fan_in ``D*E`` and fan_out ``R*E``)."""
+    if tensor.dim() == 2:
+        fan_out, fan_in = tensor.shape
+    else:
+        field = math.prod(tensor.shape[:-2])
+        fan_in, fan_out = (field * n for n in tensor.shape[-2:])
     std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
     return torch.nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std,
                                        2.0 * std, generator=generator)

@@ -5,20 +5,24 @@ are packed into ONE ``[rows, dim]`` table with per-field row offsets, under
 the JAX package's table names (``table_d{dim}`` / ``table_d{dim}b{k}``), so
 its parameters copy over as they are. ``padding_idx`` rows read as zeros.
 
-Ported so far: categorical fields, which is what SIM runs: the stacked
-``[B, F]`` gather per table, the loader-deduped expand through
-``__item_inverse__``, and the per-field lookup. Forwards are plain torch
-indexing. The plain gathers train through autograd, as the JAX package's
-``table_gather`` is a plain ``jnp.take`` under autodiff. The deduped expand
+Ported so far: categorical fields (the stacked ``[B, F]`` gather per
+table, the loader-deduped expand through ``__item_inverse__``, and the
+per-field lookup) and numeric fields (``x * w``, one ``[fields, dim]``
+weight per dim, ``numeric_d{dim}``), with the layout options that
+``LogisticRegression`` sets (``force_dim``, ``use_pretrain``,
+``use_sharing``). Forwards are plain torch indexing. The plain gathers
+train through autograd, as the JAX package's ``table_gather`` is a plain
+``jnp.take`` under autodiff. The deduped expand
 (:func:`table_gather_expand`, :func:`table_gather_expand_multi`) is an
 autograd Function whose backward is the JAX package's custom VJP: on CUDA a
 hand-written deterministic kernel (``csrc/table_gather_expand.cu``), on the
-CPU its plain version. Numeric, sequence, ``embedding``-type, pretrained and
-encoded fields raise.
+CPU its plain version. Sequence, ``embedding``-type, pretrained and encoded
+fields raise; ``pool_sequences`` is not ported.
 """
 
 import ctypes
 import functools
+import math
 from collections import OrderedDict
 
 import torch
@@ -182,13 +186,17 @@ def table_gather_expand_multi(table, ids_stack, inv, mask_stack):
 class EmbeddingLayout:
     """Host-side plan of the fused-table packing, identical to the JAX
     package's for the same feature map: ``fields`` (name -> plan with
-    ``table``, ``offset``, ``padding_idx``) and ``tables`` (name ->
-    ``{"rows", "dim"}``). ``size_buckets`` resolves explicit arg >
-    ``feature_map.table_size_buckets`` > the default; ``()`` gives one
-    table per dim. Fields with ``share_embedding`` alias their owner's
-    rows."""
+    ``table``, ``offset``, ``padding_idx``; a numeric field's plan has its
+    ``numeric_index``), ``tables`` (name -> ``{"rows", "dim"}``) and
+    ``numeric`` (dim -> numeric field names). ``size_buckets`` resolves
+    explicit arg > ``feature_map.table_size_buckets`` > the default; ``()``
+    gives one table per dim. ``force_dim`` gives every field that dim.
+    Fields with ``share_embedding`` alias their owner's rows unless
+    ``use_sharing`` is false; with ``use_pretrain`` false a field's
+    ``pretrained_emb`` is ignored and it takes fused rows."""
 
-    def __init__(self, feature_map, embedding_dim, size_buckets=None):
+    def __init__(self, feature_map, embedding_dim, size_buckets=None,
+                 use_pretrain=True, use_sharing=True, force_dim=None):
         self.feature_map = feature_map
         if size_buckets is None:
             size_buckets = getattr(feature_map, "table_size_buckets", None)
@@ -197,6 +205,7 @@ class EmbeddingLayout:
         self.size_buckets = tuple(sorted(size_buckets))
         self.fields = OrderedDict()
         self.tables = OrderedDict()
+        self.numeric = {}             # dim -> [field names]
         vocab_offset = {}             # (dim, bucket) -> running row count
 
         def bucket_of(vocab_size):
@@ -209,13 +218,17 @@ class EmbeddingLayout:
             ftype = spec["type"]
             if ftype == "meta":
                 continue
-            dim = spec.get("embedding_dim", embedding_dim)
+            dim = force_dim or spec.get("embedding_dim", embedding_dim)
             plan = {"type": ftype, "dim": dim, "spec": spec}
-            if ftype in ("categorical", "sequence"):
-                if "pretrained_emb" in spec:
+            if ftype == "numeric":
+                plan["numeric_index"] = len(self.numeric.setdefault(dim, []))
+                self.numeric[dim].append(name)
+            elif ftype in ("categorical", "sequence"):
+                if use_pretrain and "pretrained_emb" in spec:
                     plan["pretrained"] = True
                 else:
-                    owner = spec.get("share_embedding")
+                    owner = spec.get("share_embedding") if use_sharing \
+                        else None
                     if owner and owner in self.fields \
                             and "offset" in self.fields[owner]:
                         plan["offset"] = self.fields[owner]["offset"]
@@ -255,24 +268,36 @@ class FeatureEmbedding(nn.Module):
     Each fused table is a parameter named as in the JAX package, so
     ``embedding.table_d32b1`` in the state dict is ``params["embedding"]
     ["table_d32b1"]`` there. Tables are drawn from ``generator`` with the
-    JAX package's default init, normal with std 1e-4."""
+    JAX package's default init, normal with std 1e-4. Numeric fields of one
+    dim share the parameter ``numeric_d{dim}`` ``[fields, dim]``, row
+    ``numeric_index`` per field, drawn normal with std ``sqrt(2 / (1 +
+    dim))`` (each field a ``Linear(1, dim)``); a field's embedding is its
+    value times its row."""
 
     def __init__(self, feature_map, embedding_dim, size_buckets=None,
-                 generator=None):
+                 generator=None, use_pretrain=True, use_sharing=True,
+                 force_dim=None):
         super().__init__()
-        self.layout = EmbeddingLayout(feature_map, embedding_dim,
-                                      size_buckets=size_buckets)
+        self.layout = EmbeddingLayout(
+            feature_map, embedding_dim, size_buckets=size_buckets,
+            use_pretrain=use_pretrain, use_sharing=use_sharing,
+            force_dim=force_dim)
         for name, plan in self.layout.fields.items():
             spec = plan["spec"]
-            if (plan["type"] != "categorical" or plan.get("pretrained")
-                    or spec.get("feature_encoder")):
+            if (plan["type"] not in ("categorical", "numeric")
+                    or plan.get("pretrained") or spec.get("feature_encoder")):
                 raise NotImplementedError(
-                    f"field {name}: only plain categorical fields are "
-                    f"ported so far")
+                    f"field {name}: only plain categorical and numeric "
+                    f"fields are ported so far")
         for tname, info in self.layout.tables.items():
             table = torch.empty(info["rows"], info["dim"])
             nn.init.normal_(table, 0.0, TABLE_INIT_STD, generator=generator)
             self.register_parameter(tname, nn.Parameter(table))
+        for dim, names in self.layout.numeric.items():
+            weight = torch.empty(len(names), dim)
+            nn.init.normal_(weight, 0.0, math.sqrt(2.0 / (1 + dim)),
+                            generator=generator)
+            self.register_parameter(f"numeric_d{dim}", nn.Parameter(weight))
 
     def _table(self, tname):
         return getattr(self, tname)
@@ -287,7 +312,8 @@ class FeatureEmbedding(nn.Module):
         row ids and padding masks, for one stacked op per table."""
         by_table = {}
         for name, plan in self._present(batch):
-            by_table.setdefault(plan["table"], []).append((name, plan))
+            if plan["type"] == "categorical":
+                by_table.setdefault(plan["table"], []).append((name, plan))
         groups = {}
         for tname, fields in by_table.items():
             if len(fields) < 2:
@@ -351,8 +377,15 @@ class FeatureEmbedding(nn.Module):
             grouped = self._grouped_gather(batch)
         out = OrderedDict()
         for name, plan in self._present(batch):
-            out[name] = (grouped[name] if name in grouped
-                         else self._lookup_fused(batch, plan, name, inv))
+            if plan["type"] == "numeric":
+                w = getattr(self, f"numeric_d{plan['dim']}")
+                emb = (batch[name].float().reshape(-1, 1)
+                       * w[plan["numeric_index"]])
+                out[name] = emb if inv is None else emb[inv]
+            elif name in grouped:
+                out[name] = grouped[name]
+            else:
+                out[name] = self._lookup_fused(batch, plan, name, inv)
         return out
 
     def dict2tensor(self, emb_dict, flatten_emb=False):

@@ -9,8 +9,15 @@ it with dots, and only the leaves change:
   ``[out, in]`` (transposed); ``bias`` stays;
 - a ``BatchNorm`` ``scale`` becomes ``weight``, and its ``batch_stats``
   ``mean`` / ``var`` become ``running_mean`` / ``running_var``;
-- fused embedding tables (``table_d{dim}[b{k}]``) copy as they are, since
-  the port keeps the fused layout.
+- fused embedding tables (``table_d{dim}[b{k}]``) and numeric weights
+  (``numeric_d{dim}``) copy as they are, since the port keeps the fused
+  layout; so do the parameters a module declares itself, such as
+  ``CrossNetMix``'s ``[E, D, R]`` ``U_{i}`` / ``V_{i}``, ``C_{i}`` and
+  ``bias_{i}`` and the LR bias.
+
+So ``fm/lr/embedding/table_d1`` becomes ``fm.lr.embedding.table_d1`` and
+``crossnet/gate_0/kernel`` ``crossnet.gate_0.weight``, transposed. Only a
+2-D ``kernel`` is taken: a stacked one (``stacked_mlp``) raises.
 """
 
 from collections import OrderedDict
@@ -34,6 +41,10 @@ def params_from_jax(params, batch_stats=None):
     for path, arr in _flatten(params):
         *mod, leaf = path
         if leaf == "kernel":
+            if arr.ndim != 2:
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: a {arr.ndim}-D kernel (stacked "
+                    f"Dense) is not ported")
             arr, leaf = arr.T, "weight"
         elif leaf == "scale":
             leaf = "weight"

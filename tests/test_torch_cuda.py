@@ -340,3 +340,65 @@ def test_sim_train_gradients_on_the_card_match_the_cpu(cuda):
     for gc, gg in zip(grads_c, grads_g):
         torch.testing.assert_close(gg.cpu(), gc, rtol=0,
                                    atol=1e-5 * float(gc.abs().max()) + 1e-9)
+
+
+def _small_dcnv2(device, compute_dtype=None, seed=5):
+    """A seeded DCNv2 of bench.py's form at a small width (6 categorical
+    fields of vocab 300, 4 numeric, dim 8, two cross layers, towers [64,
+    32]) and its synthetic batches."""
+    from fuxictr_tpu_torch.models import get_model
+    from fuxictr_tpu_torch.utils.synthetic import (make_synthetic_batch,
+                                                   make_synthetic_feature_map)
+    fm = make_synthetic_feature_map(num_categorical=6, num_numeric=4,
+                                    vocab_size=300, embedding_dim=8)
+    model = get_model("DCNv2")(fm, device=device, embedding_dim=8,
+                               num_cross_layers=2,
+                               parallel_dnn_hidden_units=[64, 32],
+                               compute_dtype=compute_dtype, seed=seed)
+    return model, [make_synthetic_batch(fm, 512, seed=s) for s in range(2)]
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_dcnv2_train_step_is_bitwise_repeatable(cuda, compute_dtype):
+    """Two train steps from one state give the same bits, loss included
+    (the table gradient's ``index_put_`` adds duplicate ids in a fixed
+    order), and launch no K1 or K3 kernel."""
+    import chip_smoke
+    model, batches = _small_dcnv2(cuda, compute_dtype)
+    placed = [model._place_batch(b) for b in batches]
+    model.train_step(placed[0])                  # builds the optimizer
+    snap = chip_smoke.snapshot(model)
+    counts = (ta.target_attention_cuda.launches,
+              ta.target_attention_bwd_cuda.launches,
+              emb.table_gather_expand_bwd_cuda.launches)
+    loss = model.train_step(placed[1])
+    first = [p.detach().clone() for p in model.parameters()]
+    assert counts == (ta.target_attention_cuda.launches,
+                      ta.target_attention_bwd_cuda.launches,
+                      emb.table_gather_expand_bwd_cuda.launches)
+    chip_smoke.restore(model, snap)
+    assert torch.equal(model.train_step(placed[1]), loss)
+    for a, b in zip(first, model.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_dcnv2_train_gradients_on_the_card_match_the_cpu(cuda):
+    """The same seeded DCNv2 on both devices, f32, one batch: the loss
+    within 1e-5 relative and every parameter's gradient within 1e-5 of its
+    largest entry (sums in another order). A ReLU input within f32
+    rounding of zero may take another side on the other device and move
+    one example's term of a weight gradient, so the CPU step takes the
+    card's side of each tower ReLU, as ``chip_smoke.py`` does."""
+    import chip_smoke
+    (cpu_model, batches), (card_model, _) = (_small_dcnv2(d)
+                                             for d in ("cpu", cuda))
+    kept, _, hooks = chip_smoke._tower_hooks(card_model)
+    loss_g, grads_g = card_model.loss_and_grads(batches[0])
+    _, _, cpu_hooks = chip_smoke._tower_hooks(cpu_model, pin=kept)
+    loss_c, grads_c = cpu_model.loss_and_grads(batches[0])
+    for h in hooks + cpu_hooks:
+        h.remove()
+    assert float(loss_g) == pytest.approx(float(loss_c), rel=1e-5)
+    for gc, gg in zip(grads_c, grads_g):
+        torch.testing.assert_close(gg.cpu(), gc, rtol=0,
+                                   atol=1e-5 * float(gc.abs().max()) + 1e-9)

@@ -26,6 +26,10 @@ SLICE_MODULES = [
     "fuxictr_tpu_torch.ops.mlp", "fuxictr_tpu_torch.ops.target_attention",
     "fuxictr_tpu_torch.ops.attention", "fuxictr_tpu_torch.models",
     "fuxictr_tpu_torch.models.zoo", "fuxictr_tpu_torch.utils.convert",
+    "fuxictr_tpu_torch.data.array_dataset", "fuxictr_tpu_torch.ops.blocks",
+    "fuxictr_tpu_torch.ops.interactions",
+    "fuxictr_tpu_torch.models.zoo.ranking",
+    "fuxictr_tpu_torch.utils.synthetic", "fuxictr_tpu_torch.experiment",
 ]
 
 
@@ -85,6 +89,23 @@ def test_sim_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model("SIM")(fm, **kw)
     assert get_model("SIM")(fm, device="cpu", **kw).device.type == "cpu"
+
+
+def test_ranking_models_and_run_expid_need_a_gpu_unless_asked_for_cpu(
+        monkeypatch):
+    _no_cuda(monkeypatch)
+    from fuxictr_tpu_torch.experiment import main
+    from fuxictr_tpu_torch.utils.synthetic import make_synthetic_feature_map
+    fm = make_synthetic_feature_map(num_categorical=2, num_numeric=1,
+                                    vocab_size=9)
+    for name in ("DeepFM", "DCNv2"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_model(name)(fm, embedding_dim=4)
+        assert get_model(name)(fm, embedding_dim=4,
+                               device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--config", os.path.join(ROOT, "configs", "tiny"),
+              "--expid", "DCNv2_test"])
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -31,8 +31,9 @@ from fuxictr_tpu.ops import mlp as jax_mlp
 from fuxictr_tpu.ops.pallas_kernels import _xla_target_attention
 from fuxictr_tpu_torch.config import Monitor
 from fuxictr_tpu_torch.data import SAMPLE_MASK_KEY
-from fuxictr_tpu_torch.data.loader import RankDataLoader
+from fuxictr_tpu_torch.data.loader import InMemoryDataLoader, RankDataLoader
 from fuxictr_tpu_torch.data.longctr_loader import LongCTRDataLoader
+from fuxictr_tpu_torch.features import FeatureMap
 from fuxictr_tpu_torch.models import get_model
 from fuxictr_tpu_torch.models.base import (ClippedAdam,
                                            sigmoid_binary_cross_entropy)
@@ -585,14 +586,24 @@ def test_rank_data_loader_stages(stage):
 
 
 def test_rank_data_loader_refuses_what_is_not_ported():
+    """A loader named by a string and the device-cache loader raise; no
+    ``data_loader`` now gives the in-memory loader, as in the JAX facade
+    (it refused until the in-memory loader was ported)."""
     _, tfm = _feature_maps(_params())
-    for loader in (None, "LongCTRDataLoader"):
-        with pytest.raises(NotImplementedError, match="LongCTRDataLoader"):
-            RankDataLoader(tfm, stage="test", test_data="x",
-                           data_loader=loader)
+    with pytest.raises(NotImplementedError, match="LongCTRDataLoader"):
+        RankDataLoader(tfm, stage="test", test_data="x",
+                       data_loader="LongCTRDataLoader")
     with pytest.raises(NotImplementedError, match="device-cache"):
         RankDataLoader(tfm, stage="test", test_data="x",
                        data_loader=LongCTRDataLoader, device_cache=True)
+    tiny = os.path.join(os.path.dirname(DATA), "tiny_parquet")
+    fm = FeatureMap("tiny_parquet", tiny)
+    fm.load(os.path.join(tiny, "feature_map.json"))
+    test_gen = RankDataLoader(fm, stage="test", batch_size=16,
+                              test_data=os.path.join(tiny, "test.parquet"),
+                              data_loader=None).make_iterator()
+    assert isinstance(test_gen, InMemoryDataLoader)
+    assert test_gen.num_samples == 100 and not test_gen.shuffle
 
 
 def _small_sim_and_batch(**override):
